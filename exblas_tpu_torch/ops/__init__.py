@@ -1,0 +1,5 @@
+from .exdot import exdot, exdot_acc, exdot_bits
+from .exsum import exsum, exsum_acc, exsum_bits
+
+__all__ = ["exsum", "exsum_acc", "exsum_bits", "exdot", "exdot_acc",
+           "exdot_bits"]

@@ -1,0 +1,155 @@
+// Correctly rounded conversion of one int64 superaccumulator to binary64
+// bits, on the device.
+//
+// Replaces exblas_tpu/ops/kernels/round_in_kernel.py::round_lanes_acc (the
+// in-kernel rounding inside exsum_bits_pallas and exdot_bits_pallas).  The
+// TPU version rounds 128 lane accumulators at once in uint32 word pairs and
+// finds the leading limb without gathers; on Hopper one thread walks the
+// merged int64 limbs held in shared memory, with native 64-bit integers.
+//
+// Steps (all in integers: a native fp64 add cannot round a ~2100-bit value
+// once):
+//   1. canonicalize: sequential carry, digits in [0, 2^20); the sign is the
+//      final carry (-1 or 0 within the format's headroom);
+//   2. negate (two's complement in base 2^20) if the value is negative;
+//   3. find the leading digit and the leading bit p_msb;
+//   4. take the 55-bit window [p_msb - 54, p_msb] plus a sticky bit;
+//   5. round to nearest even, with subnormals and overflow to +-Inf;
+//      an all-zero accumulator is +0.0;
+//   6. specials, in the order of exblas_tpu/core/rounding.py:341-346:
+//      -Inf, then +Inf, then NaN (any NaN, or both infinities), where NaN is
+//      the canonical 0x7FF8000000000000.
+#pragma once
+
+#include <cstdint>
+
+namespace exblas {
+
+constexpr int kLimbBits = 20;
+constexpr long long kLimbMask = (1LL << kLimbBits) - 1;
+constexpr unsigned long long kQNanBits = 0x7FF8000000000000ULL;
+constexpr unsigned long long kPInfBits = 0x7FF0000000000000ULL;
+constexpr unsigned long long kNInfBits = 0xFFF0000000000000ULL;
+constexpr unsigned long long kSignBit = 0x8000000000000000ULL;
+
+// Sequential carry over L int64 limbs.  Writes digits in [0, 2^20) and
+// returns the final carry (< 0 iff the value is negative).
+__device__ __forceinline__ long long canonicalize(const long long* limbs,
+                                                  int* digits, int L) {
+  long long carry = 0;
+  for (int j = 0; j < L; ++j) {
+    const long long d = limbs[j] + carry;
+    const long long digit = d & kLimbMask;
+    digits[j] = static_cast<int>(digit);
+    carry = (d - digit) >> kLimbBits;  // arithmetic shift: floor division
+  }
+  return carry;
+}
+
+// Round m55 * 2^(e_msb - 54) (bit 54 of m55 set) plus a sticky tail below
+// to binary64, round to nearest even.  Port of core/rounding.py's
+// ieee_encode_round.
+__device__ __forceinline__ unsigned long long encode_round(
+    bool negative, int e_msb, unsigned long long m55, bool sticky_below) {
+  const bool subn = e_msb < -1022;
+  const int d = subn ? (-1022 - e_msb) : 0;
+  const int c = d + 2 > 63 ? 63 : d + 2;
+  unsigned long long m53 = m55 >> c;
+  unsigned long long guard = (m55 >> (c - 1)) & 1ULL;
+  bool sticky = sticky_below || (m55 & ((1ULL << (c - 1)) - 1ULL)) != 0ULL;
+  if (d >= 60) {  // deep underflow: everything dropped
+    m53 = 0ULL;
+    guard = 0ULL;
+    sticky = true;
+  }
+  const bool round_up = guard != 0ULL && (sticky || (m53 & 1ULL) != 0ULL);
+  unsigned long long m = m53 + (round_up ? 1ULL : 0ULL);
+  int e = e_msb;
+  if (!subn && m == (1ULL << 53)) {  // mantissa overflow on round-up
+    m = 1ULL << 52;
+    e += 1;
+  }
+  // A subnormal that rounded up to 2^52 becomes the smallest normal.
+  const unsigned long long expf =
+      subn ? ((m >> 52) & 1ULL) : static_cast<unsigned long long>(e + 1023);
+  unsigned long long bits = (expf << 52) | (m & ((1ULL << 52) - 1ULL));
+  if (!subn && e + 1023 >= 2047) bits = kPInfBits;
+  return negative ? (bits | kSignBit) : bits;
+}
+
+// Round canonical digits (modified in place: negated if negative) to
+// binary64 bits.  Bit p of the accumulator has exponent p - offset_bits.
+__device__ __forceinline__ unsigned long long round_digits(
+    int* digits, int L, bool negative, int offset_bits) {
+  if (negative) {
+    long long borrow = 1;
+    for (int j = 0; j < L; ++j) {
+      const long long t = (digits[j] ^ kLimbMask) + borrow;
+      digits[j] = static_cast<int>(t & kLimbMask);
+      borrow = t >> kLimbBits;
+    }
+  }
+  int jstar = L - 1;
+  while (jstar >= 0 && digits[jstar] == 0) --jstar;
+  if (jstar < 0) return 0ULL;  // exact zero is +0.0
+  const int p_msb = jstar * kLimbBits + (31 - __clz(digits[jstar]));
+  const int pos_low = p_msb - 54;
+  // floor(pos_low / 20); pos_low >= -54
+  const int j0 = (pos_low + 60) / kLimbBits - 3;
+  unsigned long long m55 = 0ULL;
+  bool sticky = false;
+  for (int j = 0; j < j0; ++j) sticky = sticky || digits[j] != 0;
+  for (int j = j0 < 0 ? 0 : j0; j <= jstar; ++j) {
+    const unsigned long long d = static_cast<unsigned int>(digits[j]);
+    const int s = kLimbBits * j - pos_low;  // this digit's lsb in the window
+    if (s >= 0) {
+      m55 |= d << s;
+    } else {
+      m55 |= d >> (-s);
+      sticky = sticky || (d & ((1ULL << (-s)) - 1ULL)) != 0ULL;
+    }
+  }
+  return encode_round(negative, p_msb - offset_bits,
+                      m55 & ((1ULL << 55) - 1ULL), sticky);
+}
+
+__device__ __forceinline__ unsigned long long apply_specials(
+    unsigned long long bits, long long nan_c, long long pinf_c,
+    long long ninf_c) {
+  if (ninf_c > 0) bits = kNInfBits;
+  if (pinf_c > 0) bits = kPInfBits;
+  if (nan_c > 0 || (pinf_c > 0 && ninf_c > 0)) bits = kQNanBits;
+  return bits;
+}
+
+// The finishing step shared by the sum and dot kernels, run by one block.
+// ws holds L int64 limbs followed by the NaN, +Inf and -Inf counts.  With
+// bits_out set it writes the rounded binary64 bits; otherwise it writes the
+// canonical int32 limbs (digits in [0, 2^20) with the final carry folded
+// into the top limb, which keeps the exact value) and the int32 counts.
+template <int L>
+__device__ __forceinline__ void finish(const long long* ws, int offset_bits,
+                                       int* limbs_out, int* special_out,
+                                       unsigned long long* bits_out) {
+  __shared__ long long s_limbs[L];
+  __shared__ int s_digits[L];
+  for (int j = threadIdx.x; j < L; j += blockDim.x) s_limbs[j] = ws[j];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const long long carry = canonicalize(s_limbs, s_digits, L);
+  const long long nan_c = ws[L], pinf_c = ws[L + 1], ninf_c = ws[L + 2];
+  if (bits_out != nullptr) {
+    const unsigned long long bits =
+        round_digits(s_digits, L, carry < 0, offset_bits);
+    *bits_out = apply_specials(bits, nan_c, pinf_c, ninf_c);
+    return;
+  }
+  for (int j = 0; j < L - 1; ++j) limbs_out[j] = s_digits[j];
+  limbs_out[L - 1] =
+      static_cast<int>(s_digits[L - 1] + carry * (1LL << kLimbBits));
+  special_out[0] = static_cast<int>(nan_c);
+  special_out[1] = static_cast<int>(pinf_c);
+  special_out[2] = static_cast<int>(ninf_c);
+}
+
+}  // namespace exblas

@@ -1,0 +1,96 @@
+"""Parity helpers for the PyTorch port's tests: the same float64 numpy input
+goes through the JAX reference (``impl="xla"``, or a Pallas kernel entry in
+TPU interpret mode) and through the port, and results compare as uint64
+bits, or as canonical digits plus sign and special counts for
+accumulators.  Tolerance is zero throughout."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+import exblas_tpu as xb
+import exblas_tpu_torch as xt
+from exblas_tpu.core.ieee import split_f64
+from exblas_tpu_torch.core.rounding import canonicalize_digits
+
+U64 = (1 << 64) - 1
+
+
+def u64(bits) -> int:
+    """An int64/uint64 bit pattern (tensor, array or int) as a Python int in
+    [0, 2^64)."""
+    return int(np.asarray(bits.cpu() if isinstance(bits, torch.Tensor)
+                          else bits).reshape(()).astype(np.uint64)) & U64
+
+
+def port_state(acc):
+    """(digits, negative, special) of a port Superacc, as numpy."""
+    d, neg = canonicalize_digits(acc.limbs)
+    return d.numpy(), bool(neg), acc.special.numpy().astype(np.int64)
+
+
+def jax_state(acc):
+    """(digits, negative, special) of a JAX Superacc, canonicalized by the
+    JAX package's own ``canonicalize_digits``."""
+    from exblas_tpu.core.rounding import canonicalize_digits as jcanon
+
+    d, neg = jcanon(acc.limbs)
+    return (np.asarray(d).astype(np.int32), bool(neg),
+            np.asarray(acc.special).astype(np.int64))
+
+
+def assert_same_state(got, want, msg=""):
+    gd, gn, gs = got
+    wd, wn, ws = want
+    assert gn == wn, f"{msg}: sign {gn} != {wn}"
+    assert np.array_equal(gs, ws), f"{msg}: specials {gs} != {ws}"
+    assert np.array_equal(gd, wd), (
+        f"{msg}: digits differ at limbs {np.nonzero(gd != wd)[0][:8]}")
+
+
+def assert_same_bits(got, want, msg=""):
+    assert u64(got) == u64(want), (
+        f"{msg}: {u64(got):#018x} != {u64(want):#018x}")
+
+
+# --- port (plain PyTorch path on CPU tensors) ------------------------------
+
+def port_sum_bits(x, **kw) -> int:
+    return u64(xt.exsum_bits(torch.from_numpy(np.asarray(x, np.float64)),
+                             **kw))
+
+
+def port_dot_bits(a, b, **kw) -> int:
+    return u64(xt.exdot_bits(torch.from_numpy(np.asarray(a, np.float64)),
+                             torch.from_numpy(np.asarray(b, np.float64)),
+                             **kw))
+
+
+# --- JAX reference ---------------------------------------------------------
+
+def jax_sum_bits(x, **kw) -> int:
+    return u64(xb.exsum_bits(np.asarray(x, np.float64), impl="xla", **kw))
+
+
+def jax_dot_bits(a, b, **kw) -> int:
+    return u64(xb.exdot_bits(np.asarray(a, np.float64),
+                             np.asarray(b, np.float64), impl="xla", **kw))
+
+
+def pallas_interpret(entry: str, *arrays, rows: int = 8):
+    """Run a Pallas kernel entry of the JAX package in TPU interpret mode
+    (as tests/test_kernel_interpret.py does)."""
+    from jax.experimental.pallas import tpu as pltpu
+    from exblas_tpu.ops.kernels import dot_kernel, sum_kernel
+
+    fn = {"exsum_pallas": sum_kernel.exsum_pallas,
+          "exsum_bits_pallas": sum_kernel.exsum_bits_pallas,
+          "exdot_pallas": dot_kernel.exdot_pallas,
+          "exdot_bits_pallas": dot_kernel.exdot_bits_pallas}[entry]
+    planes = []
+    for a in arrays:
+        b = split_f64(np.asarray(a, np.float64))
+        planes += [b.hi, b.lo]
+    with pltpu.force_tpu_interpret_mode():
+        return fn(*planes, rows=rows)
