@@ -6,13 +6,24 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the checkout's sources, holds each kernel
-bit for bit against its plain PyTorch version at n in {1, 17, 2^20+3, 2^24}
-on every listed distribution (specials included), drives the public API
-(``exsum``, ``exdot``, ``exsum_acc``, ``exdot_acc``) on CUDA tensors at
-n = 2^24 against exact host oracles, checks that the main path went through
-the kernels, times kernels, plain versions and native float64 controls with
-CUDA events, and prints one JSON summary line per the contract below.  Any
+It builds the CUDA kernels from the checkout's sources and then, for each
+slice of the port:
+
+* ExSUM/ExDOT: holds each kernel bit for bit against its plain PyTorch
+  version at n in {1, 17, 2^20+3, 2^24} on every listed distribution
+  (specials included), drives the public API (``exsum``, ``exdot``,
+  ``exsum_acc``, ``exdot_acc``) on CUDA tensors at n = 2^24 against exact
+  host oracles and checks that this path went through the kernels;
+* ExGEMM: holds the exact kernel and the int8 slice kernel bit for bit
+  against their plain versions on five shapes, ten distributions, every
+  beta mode, both transposes and four rungs; drives ``exgemm`` at n = 4096
+  on the benchmark data (rung (8, 8), the slice kernel), on data too wide
+  for any rung (the exact kernel) and on data with specials (the
+  override) against exact host values, the exact kernel and a
+  permutation of k, and checks that this path launched both kernels;
+
+then times kernels, plain versions and the native float64 controls with
+CUDA events and prints one JSON summary line per the contract below.  Any
 failure raises, so the script exits non-zero without the final line.  It
 also exits non-zero when no CUDA device is present.
 
@@ -47,6 +58,11 @@ def log(*args):
 
 def f64_bits(v: float) -> int:
     return int(np.float64(v).view(np.uint64))
+
+
+def s64(v: float) -> int:
+    """The binary64 bits of ``v`` as a signed int, as the port holds them."""
+    return int(np.float64(v).view(np.int64))
 
 
 def u64(bits: int) -> int:
@@ -126,9 +142,22 @@ def phase_device() -> str:
     return smi
 
 
+def sm_clock_max_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
 def phase_build():
     from exblas_tpu_torch.ops.kernels import _build
 
+    for src in _build.sources():
+        log("build:", " ".join(_build.object_command(src)(
+            _build.object_path(src))))
     log("build:", " ".join(_build.build_command(_build.LIB_PATH)))
     t0 = time.perf_counter()
     _build.build(force=True)
@@ -205,10 +234,11 @@ def phase_kernels(xt) -> dict:
     return errs
 
 
-def exact_dot_host(a: np.ndarray, b: np.ndarray) -> float:
-    """Correctly rounded dot product of finite doubles whose products
-    neither overflow nor underflow: Dekker's exact TwoProduct, then
-    math.fsum (correctly rounded) over all products and their errors."""
+def exact_dot_host(a: np.ndarray, b: np.ndarray, extra=()) -> float:
+    """Correctly rounded dot product (plus the doubles ``extra``) of finite
+    doubles whose products neither overflow nor underflow: Dekker's exact
+    TwoProduct, then math.fsum (correctly rounded) over all products,
+    their errors and ``extra``."""
     split = 134217729.0  # 2^27 + 1
 
     def halves(x):
@@ -220,7 +250,8 @@ def exact_dot_host(a: np.ndarray, b: np.ndarray) -> float:
     ah, al = halves(a)
     bh, bl = halves(b)
     e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return math.fsum(np.concatenate([p, e]).tolist())
+    return math.fsum(np.concatenate([p, e, np.asarray(extra, np.float64)])
+                     .tolist())
 
 
 def phase_public_api(xt) -> dict:
@@ -288,6 +319,11 @@ def phase_public_api(xt) -> dict:
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    # numpy input runs on the card
+    x_np = host["lognormal"]
+    if (xt.exsum_bits(x_np).device.type != "cuda"
+            or f64_bits(xt.exsum(x_np)) != f64_bits(math.fsum(x_np.tolist()))):
+        raise AssertionError("exsum on numpy input did not run on the card")
     return launches
 
 
@@ -337,7 +373,7 @@ def phase_timing(xt, smi: str) -> dict:
                 f"float64 {t_n:.4f} ms ({bpe * N_BIG / (t_n * 1e-3) / 1e9:.1f}"
                 f" GB/s) [{smi}]")
             if dist == "lognormal":
-                out[name] = (t_k, t_p)
+                out[name] = (t_k, t_p, t_n)
         # the public entries: the wrappers above plus dispatch and checks
         t_s = time_ms(lambda: xt.exsum_bits(a))
         t_d = time_ms(lambda: xt.exdot_bits(a, b))
@@ -346,15 +382,447 @@ def phase_timing(xt, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# ExGEMM
+# ---------------------------------------------------------------------------
+
+GEMM_SHAPES = ((1, 1, 1), (5, 7, 9), (17, 130, 33), (128, 256, 128),
+               (257, 1000, 129))
+GEMM_DISTS = ("narrow", "mixed", "wide", "very_wide", "subnormal",
+              "cancellation", "nan", "inf", "inf_times_zero", "both_inf")
+GEMM_RUNGS = ((8, 8), (8, 12), (16, 16), (40, 40))
+BETA_MODES = (("one", 1.0), ("general", -0.75), ("zero", 0.0))
+TRANS = ("NN", "TN", "NT", "TT")
+N_GEMM = 4096
+ONE_BITS = s64(1.0)
+
+
+def rand_mat(m: int, n: int, lo: int, hi: int, seed: int,
+             signed: bool = True) -> np.ndarray:
+    """Doubles with uniform significands and exponents in [lo, hi)."""
+    rs = np.random.RandomState(seed)
+    x = (1.0 + rs.rand(m, n)) * np.exp2(rs.randint(lo, hi, size=(m, n)))
+    if signed:
+        x *= np.where(rs.rand(m, n) < 0.5, -1.0, 1.0)
+    return x
+
+
+def gemm_case(dist: str, m: int, k: int, n: int, seed: int):
+    """(a (m, k), b (k, n), c (m, n)) of distribution ``dist``."""
+    rs = np.random.RandomState(seed)
+    c = rand_mat(m, n, 0, 10, seed + 2)
+    spans = {"narrow": (0, 10, 0, 10), "mixed": (0, 10, -20, 20),
+             "wide": (-35, 35, -35, 35), "very_wide": (-130, 130, -130, 130),
+             "subnormal": (-545, -535, -545, -535)}
+    if dist in spans:
+        la, ha, lb, hb = spans[dist]
+        a = rand_mat(m, k, la, ha, seed)
+        b = rand_mat(k, n, lb, hb, seed + 1)
+        if dist == "subnormal":  # products near and below 2^-1074
+            c = np.zeros((m, n))
+        return a, b, c
+    if dist == "cancellation":  # [x, -x] @ [y; y] == 0 exactly: +0.0
+        if k == 1:
+            return np.zeros((m, 1)), np.ones((1, n)), np.zeros((m, n))
+        h = k // 2
+        x = rand_mat(m, h, -30, 30, seed)
+        y = rand_mat(h, n, -30, 30, seed + 1)
+        a = np.concatenate([x, -x, np.zeros((m, k - 2 * h))], axis=1)
+        b = np.concatenate([y, y, np.zeros((k - 2 * h, n))], axis=0)
+        return a, b, np.zeros((m, n))
+    a = rand_mat(m, k, 0, 10, seed)
+    b = rand_mat(k, n, 0, 10, seed + 1)
+    i, kk, j = rs.randint(0, m), rs.randint(0, k), rs.randint(0, n)
+    if dist == "nan":  # a NaN with a payload and the sign set
+        a[i, kk] = np.array([0xFFF0000000000123], np.uint64).view(
+            np.float64)[0]
+    elif dist == "inf":
+        a[i, kk] = np.inf
+        b[rs.randint(0, k), j] = -np.inf
+    elif dist == "inf_times_zero":
+        a[i, kk] = np.inf
+        b[kk, :] = 0.0
+    elif dist == "both_inf":
+        a[i, :] = np.inf
+        b[:, j] = np.where(np.arange(k) % 2 == 0, 1.0, -1.0)
+    else:
+        raise ValueError(dist)
+    return a, b, c
+
+
+def cuda_bits(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float64)).cuda().view(
+        torch.int64)
+
+
+def mismatch_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """0.0 if the bit patterns agree, else the largest |difference| of the
+    values that differ (inf where a difference is not finite)."""
+    bad = got != want
+    if not bool(bad.any()):
+        return 0.0
+    d = (got[bad].view(torch.float64) - want[bad].view(torch.float64)).abs()
+    d = torch.where(torch.isnan(d), torch.full_like(d, math.inf), d)
+    return max(float(d.max()), 1e-300)
+
+
+def phase_gemm_kernels(xt) -> dict:
+    """B5 and B6 against their plain versions on the card, and the public
+    entry on the kernels against the public entry on the plain path."""
+    from exblas_tpu_torch.ops.exgemm import _c_cover_bounds, _mxu_c_cover
+    from exblas_tpu_torch.ops.kernels import gemm_kernel as gk
+    from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
+
+    errs = {"gemm_bits_cuda": 0.0, "gemm_bits_mxu_cuda": 0.0}
+    failures = []
+    n_rungs = n_turns = 0
+    for si, (m, k, n) in enumerate(GEMM_SHAPES):
+        for di, dist in enumerate(GEMM_DISTS):
+            seed = SEED + 1000 * si + 31 * di
+            a_np, b_np, c_np = gemm_case(dist, m, k, n, seed)
+            mode, beta = BETA_MODES[(si + di) % 3]
+            tr = TRANS[(si + 2 * di) % 4]
+            za, zb, zc = cuda_bits(a_np), cuda_bits(b_np), cuda_bits(c_np)
+            bb = s64(beta)
+            line = [f"gemm {m}x{k}x{n} {dist} {mode} {tr}:"]
+            ek = gk.gemm_bits_cuda(za, zb, zc, bb, mode)
+            ep = gk.gemm_bits_torch(za, zb, zc, bb, mode)
+            e = mismatch_err(ek, ep)
+            errs["gemm_bits_cuda"] = max(errs["gemm_bits_cuda"], e)
+            line.append(f"B5 {'==' if e == 0 else '!='}")
+            if e != 0:
+                failures.append(f"B5 {m}x{k}x{n} {dist} {mode}")
+            if dist == "cancellation" and bool((ek != 0).any()):
+                failures.append(f"B5 {m}x{k}x{n} cancellation is not +0.0")
+            ea, fb, sp_a, sp_b, _ = gm.analyze_gemm_operands(za, zb)
+            ea0 = torch.where(ea < -9000, 0, ea)
+            fb0 = torch.where(fb < -9000, 0, fb)
+            lo, hi = (_c_cover_bounds(zc, bb, ea0, fb0) if mode != "zero"
+                      else (torch.tensor(0), torch.tensor(0)))
+            sp_a, sp_b, lo, hi = (int(sp_a), int(sp_b), int(lo), int(hi))
+            for sa, sb in GEMM_RUNGS:
+                if not (sp_a <= 8 * sa and sp_b <= 8 * sb
+                        and _mxu_c_cover(lo, hi, sa, sb)):
+                    continue  # uncovered: the dispatcher never sends it
+                kw = dict(ea=ea0, fb=fb0)
+                mk = gm.gemm_bits_mxu_cuda(za, zb, zc, bb, mode, sa, sb, **kw)
+                mp = gm.gemm_bits_mxu_torch(za, zb, zc, bb, mode, sa, sb,
+                                            **kw)
+                e = mismatch_err(mk, mp)
+                dk = gm.mxu_operands_cuda(za, zb, sa, sb, **kw)
+                dp = gm.mxu_operands(za, zb, sa, sb, **kw)
+                if not (torch.equal(dk.ad, dp.ad)
+                        and torch.equal(dk.bd, dp.bd)):
+                    failures.append(f"digits ({sa},{sb}) {m}x{k}x{n} {dist}")
+                errs["gemm_bits_mxu_cuda"] = max(errs["gemm_bits_mxu_cuda"],
+                                                 e)
+                n_rungs += 1
+                line.append(f"B6({sa},{sb}) {'==' if e == 0 else '!='}")
+                if e != 0:
+                    failures.append(f"B6 ({sa},{sb}) {m}x{k}x{n} {dist}")
+                if dist in ("narrow", "mixed", "wide", "very_wide") and \
+                        not torch.equal(mk, ek):
+                    failures.append(f"B6 != B5 ({sa},{sb}) {m}x{k}x{n} "
+                                    f"{dist}")
+                if si == len(GEMM_SHAPES) - 1:
+                    # the class sums in turns of 64 rows, as a large m x n
+                    # takes them
+                    whole, gm.CLS_BYTES = gm.CLS_BYTES, 1
+                    try:
+                        mt = gm.gemm_bits_mxu_cuda(za, zb, zc, bb, mode, sa,
+                                                   sb, **kw)
+                    finally:
+                        gm.CLS_BYTES = whole
+                    n_turns += 1
+                    same = torch.equal(mt, mk)
+                    line.append(f"in row turns {'==' if same else '!='}")
+                    if not same:
+                        failures.append(f"B6 ({sa},{sb}) {m}x{k}x{n} {dist} "
+                                        "in row turns")
+            # the public entry: transposes, the ladder and the override
+            sa_np = a_np.T.copy() if tr[0] == "T" else a_np
+            sb_np = b_np.T.copy() if tr[1] == "T" else b_np
+            args = (tr[0], tr[1], 1.0, torch.from_numpy(sa_np).cuda(),
+                    torch.from_numpy(sb_np).cuda())
+            kw = dict(beta=beta, c=torch.from_numpy(c_np).cuda())
+            pk = xt.exgemm_bits(*args, impl="cuda", **kw)
+            pp = xt.exgemm_bits(*args, impl="torch", **kw)
+            if not torch.equal(pk, pp) or not torch.equal(pk, ek):
+                failures.append(f"public {m}x{k}x{n} {dist} {tr}")
+            line.append(f"public {'==' if torch.equal(pk, pp) else '!='}")
+            log(" ".join(line))
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"GEMM kernel != plain version: {failures}")
+    log(f"GEMM kernels vs plain versions: bit-equal (tolerance 0) on "
+        f"{len(GEMM_SHAPES)} shapes x {len(GEMM_DISTS)} distributions, "
+        f"{n_rungs} slice-kernel rung runs ({n_turns} of them again in "
+        f"turns of {gm.ROW_TILE} rows)")
+    return errs
+
+
+def gemm_bench_data(xt, n: int):
+    """The benchmark configuration's operands (bench.py:34-37)."""
+    return (xt.init_fpuniform_matrix(n, n, 10, 0, seed=1),
+            xt.init_fpuniform_matrix(n, n, 10, 0, seed=2),
+            xt.init_fpuniform_matrix(n, n, 10, 0, seed=3))
+
+
+def phase_gemm_public(xt, bench) -> tuple[dict, dict]:
+    """The GEMM main path: ``exgemm`` at n = 4096 on the benchmark data
+    (the slice kernel), at n = 1024 on data no rung covers (the exact
+    kernel) and on data with specials (the slice kernel and the override).
+    Returns the launch counts of this run and, per kernel, the largest
+    difference from its plain version on the main path's inputs."""
+    from exblas_tpu_torch.ops.exgemm import plan_gemm
+    from exblas_tpu_torch.ops.kernels import gemm_kernel as gk
+    from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
+
+    a_np, b_np, c_np = bench
+    a, b, c = (torch.from_numpy(x).cuda() for x in bench)
+    m = 1024
+    wa_np = rand_mat(m, m, -300, 300, SEED + 51)   # spread > 384 bits
+    wb_np = rand_mat(m, m, -300, 300, SEED + 52)
+    wc_np = rand_mat(m, m, -10, 10, SEED + 53)
+    xa_np, xb_np, xc_np = (x[:m, :m].copy() for x in bench)
+    xa_np[3, 5] = np.inf
+    xa_np[7, 9] = np.array([0x7FF0000000000ABC], np.uint64).view(
+        np.float64)[0]
+    xb_np[5, 11] = 0.0
+    xb_np[:, 13] = -1.0
+    xc_np[17, 19] = -np.inf
+    wa, wb, wc, xa, xb, xc = (torch.from_numpy(x).cuda() for x in
+                              (wa_np, wb_np, wc_np, xa_np, xb_np, xc_np))
+    wrappers = (gk.gemm_bits_cuda, gm.gemm_bits_mxu_cuda)
+
+    for w in wrappers:
+        w.launches = 0
+    bits = xt.exgemm_bits("N", "N", 1.0, a, b, beta=1.0, c=c)
+    torch.cuda.synchronize()
+    if (gm.gemm_bits_mxu_cuda.launches, gk.gemm_bits_cuda.launches) != (1, 0):
+        raise AssertionError("exgemm at n=4096 did not run the slice kernel "
+                             "alone")
+    wide = xt.exgemm_bits("N", "N", 1.0, wa, wb, beta=1.0, c=wc)
+    spec = xt.exgemm_bits("N", "N", 1.0, xa, xb, beta=1.0, c=xc)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    log("GEMM launches on the main path:", launches)
+    if launches != {"gemm_bits_cuda": 1, "gemm_bits_mxu_cuda": 2}:
+        raise AssertionError(f"unexpected GEMM launches {launches}")
+
+    # n = 4096, the benchmark data: rung (8, 8), as B5 gives it, as exact
+    # host values give it, and as a permutation of k gives it
+    ab, bbits, cb = (x.view(torch.int64) for x in (a, b, c))
+    plan = plan_gemm(ab, bbits, cb, ONE_BITS, "one")
+    if plan.rung != (8, 8) or plan.override:
+        raise AssertionError(f"n={N_GEMM}: plan {plan.rung}, override "
+                             f"{plan.override}")
+    if not torch.equal(bits, gk.gemm_bits_cuda(ab, bbits, cb, ONE_BITS,
+                                               "one")):
+        raise AssertionError(f"n={N_GEMM}: slice kernel != exact kernel")
+    rs = np.random.RandomState(SEED + 54)
+    got = bits.cpu().numpy()
+    for i, j in zip(rs.randint(0, N_GEMM, 256), rs.randint(0, N_GEMM, 256)):
+        want = exact_dot_host(a_np[i, :], b_np[:, j], [c_np[i, j]])
+        if int(got[i, j]) != s64(want):
+            raise AssertionError(f"n={N_GEMM} C[{i},{j}]: "
+                                 f"{got[i, j]:#x} != exact {want!r}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    perm = torch.randperm(N_GEMM, device="cuda", generator=gen)
+    if not torch.equal(bits, xt.exgemm_bits("N", "N", 1.0, a[:, perm],
+                                            b[perm, :], beta=1.0, c=c)):
+        raise AssertionError(f"n={N_GEMM}: not invariant under a "
+                             "permutation of k")
+    # each kernel against its plain version on the main path's inputs
+    t0 = time.perf_counter()
+    errs = {"gemm_bits_mxu_cuda": mismatch_err(bits, gm.gemm_bits_mxu_torch(
+                ab, bbits, cb, ONE_BITS, "one", 8, 8)),
+            "gemm_bits_cuda": mismatch_err(wide, gk.gemm_bits_torch(
+                wa.view(torch.int64), wb.view(torch.int64),
+                wc.view(torch.int64), ONE_BITS, "one"))}
+    if any(errs.values()):
+        raise AssertionError(f"main path != plain versions: {errs}")
+    log(f"main path bit-equal to the plain versions: gemm_bits_mxu_torch at "
+        f"n={N_GEMM}, gemm_bits_torch at n={m} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"exgemm n={N_GEMM} beta=1 bench data: rung {plan.rung}, bit-equal "
+        "to the exact kernel (all 16.7M elements), to 256 exact host values "
+        "and under a permutation of k")
+
+    # n = 1024: too wide for any rung -> the exact kernel; exact host values
+    if plan_gemm(wa.view(torch.int64), wb.view(torch.int64),
+                 wc.view(torch.int64), ONE_BITS, "one").rung is not None:
+        raise AssertionError("wide data found a rung")
+    got = wide.cpu().numpy()
+    for i, j in zip(rs.randint(0, m, 64), rs.randint(0, m, 64)):
+        want = exact_dot_host(wa_np[i, :], wb_np[:, j], [wc_np[i, j]])
+        if int(got[i, j]) != s64(want):
+            raise AssertionError(f"wide C[{i},{j}]: {got[i, j]:#x} != "
+                                 f"exact {want!r}")
+    # n = 1024 with specials: the slice kernel plus the override, equal to
+    # the exact kernel, which counts the specials itself
+    xplan = plan_gemm(xa.view(torch.int64), xb.view(torch.int64),
+                      xc.view(torch.int64), ONE_BITS, "one")
+    ref = gk.gemm_bits_cuda(xa.view(torch.int64), xb.view(torch.int64),
+                            xc.view(torch.int64), ONE_BITS, "one")
+    if xplan.rung is None or not xplan.override or not torch.equal(spec, ref):
+        raise AssertionError(f"specials: plan {xplan.rung}, override "
+                             f"{xplan.override}, equal "
+                             f"{torch.equal(spec, ref)}")
+    # numpy input runs on the card
+    spec_np = xt.exgemm_bits("N", "N", 1.0, xa_np, xb_np, beta=1.0, c=xc_np)
+    if spec_np.device.type != "cuda" or not torch.equal(spec_np, spec):
+        raise AssertionError("exgemm on numpy input did not run on the card")
+    n_nan = int((spec == 0x7FF8000000000000).sum())
+    log(f"exgemm n={m}: wide data (spread > 384 bits) took the exact kernel, "
+        f"bit-equal to 64 exact host values; data with specials took rung "
+        f"{xplan.rung} and the override, bit-equal to the exact kernel "
+        f"({n_nan} NaN results, all canonical); the same numpy arrays ran on "
+        "the card")
+    return launches, errs
+
+
+def phase_gemm_timing(xt, smi: str, bench) -> dict:
+    """n = 4096, beta = 1, the benchmark data: the plan, the slice kernel
+    (and its digit, class and rounding launches apart), the public entry,
+    the exact kernel (and its rounding apart, at k = 32) and the float64
+    control; the plain versions at (257, 1000, 129)."""
+    from exblas_tpu_torch.ops.kernels import _build
+    from exblas_tpu_torch.ops.kernels import gemm_kernel as gk
+    from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
+
+    n = N_GEMM
+    a, b, c = (torch.from_numpy(x).cuda() for x in bench)
+    ab, bbits, cb = (x.view(torch.int64) for x in (a, b, c))
+    flops = 2.0 * n ** 3
+
+    def rate(t_ms):
+        return f"{t_ms:.3f} ms ({flops / (t_ms * 1e-3) / 1e12:.3f} " \
+            "TFLOP-equiv/s)"
+
+    out = {}
+    from exblas_tpu_torch.ops.exgemm import plan_gemm
+
+    t_plan = time_ms(lambda: plan_gemm(ab, bbits, cb, ONE_BITS, "one"),
+                     reps=3, inner=1)
+    plan = plan_gemm(ab, bbits, cb, ONE_BITS, "one")
+    anchors = dict(ea=plan.ea0, fb=plan.fb0)
+    t_prep = time_ms(lambda: gm.mxu_operands_cuda(ab, bbits, 8, 8), reps=3,
+                     inner=1)
+    t_digits = time_ms(lambda: gm.mxu_operands_cuda(ab, bbits, 8, 8,
+                                                    **anchors),
+                       reps=3, inner=1)
+    t_prep_plain = time_ms(lambda: gm.mxu_operands(ab, bbits, 8, 8), reps=3,
+                           inner=1)
+    ops = gm.mxu_operands_cuda(ab, bbits, 8, 8, **anchors)
+    t_b6 = time_ms(lambda: gm.gemm_bits_mxu_cuda(ab, bbits, cb, ONE_BITS,
+                                                 "one", 8, 8, **anchors),
+                   reps=5, inner=1)
+    # the class kernel and the rounding kernel apart
+    lib = _build.library()
+    n_cls, n_pad, k_pad = 17, ops.bd.shape[1], ops.ad.shape[2]
+    cls = torch.empty((n_cls, n_pad, n_pad), dtype=torch.int64,
+                      device="cuda")
+    outb = torch.empty((n, n), dtype=torch.int64, device="cuda")
+    stream = _build.stream_of(a.device)
+    nl = gm.mxu_l_rel(8, 8, "one", k_pad) + 3
+
+    t_cls = time_ms(lambda: _build.check(lib.mxu_classes_cuda(
+        _build.ptr(ops.ad), _build.ptr(ops.bd), 8, 8, n_pad * k_pad,
+        n_pad * k_pad, n_pad, n_pad, k_pad, gm._spill_run(8, 8),
+        _build.ptr(cls), stream), "mxu_classes_cuda"), reps=3, inner=1)
+    t_rnd = time_ms(lambda: lib.mxu_round_cuda(
+        _build.ptr(cls), n_cls, n_pad, n_pad, _build.ptr(ops.ea),
+        _build.ptr(ops.fb), _build.ptr(cb), ONE_BITS, 1, n, n, nl, 128,
+        _build.ptr(outb), stream), reps=5, inner=1)
+    del cls, outb
+    t_pub = time_ms(lambda: xt.exgemm_bits("N", "N", 1.0, a, b, beta=1.0,
+                                           c=c), reps=3, inner=1)
+    t_b5 = time_ms(lambda: gk.gemm_bits_cuda(ab, bbits, cb, ONE_BITS, "one"),
+                   reps=2, inner=1)
+    a32, b32 = ab[:, :32].contiguous(), bbits[:32, :].contiguous()
+    t_b5_k32 = time_ms(lambda: gk.gemm_bits_cuda(a32, b32, cb, ONE_BITS,
+                                                 "one"), reps=3, inner=1)
+    t_lib = time_ms(lambda: torch.addmm(c, a, b), reps=5, inner=3)
+    log(f"time n={n} beta=1 bench data [{smi}]:")
+    log(f"  B6 gemm_bits_mxu_cuda rung (8, 8): {rate(t_b6)}; class kernel "
+        f"{t_cls:.3f} ms, rounding kernel {t_rnd:.3f} ms")
+    log(f"  B6 preparation (analysis, digits): {t_prep:.3f} ms; the digit "
+        f"kernel alone (anchors given): {t_digits:.3f} ms; the plain "
+        f"preparation: {t_prep_plain:.3f} ms")
+    log(f"  plan (analysis, coverage, special flags, one host sync): "
+        f"{t_plan:.3f} ms")
+    log(f"  public xt.exgemm_bits: {rate(t_pub)}")
+    log(f"  B5 gemm_bits_cuda: {rate(t_b5)}; at k=32 (zeroing and rounding "
+        f"16.7M elements, 32 products each): {t_b5_k32:.3f} ms")
+    log(f"  float64 control torch.addmm(c, a, b): {rate(t_lib)}")
+
+    # the plain versions, at a shape where they finish in seconds
+    pm, pk, pn = GEMM_SHAPES[-1]
+    pa, pb, pc = (cuda_bits(x) for x in gemm_case("narrow", pm, pk, pn, SEED))
+    t_p5 = time_ms(lambda: gk.gemm_bits_torch(pa, pb, pc, ONE_BITS, "one"),
+                   reps=2, inner=1)
+    t_p6 = time_ms(lambda: gm.gemm_bits_mxu_torch(pa, pb, pc, ONE_BITS, "one",
+                                                  8, 8),
+                   reps=3, inner=1)
+    log(f"time {pm}x{pk}x{pn} plain versions [{smi}]: gemm_bits_torch "
+        f"{t_p5:.3f} ms, gemm_bits_mxu_torch (8, 8) {t_p6:.3f} ms")
+
+    # bounds: B6 by its int8 operations (or bytes), B5 by instruction issue
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_max_hz()
+    ops8 = 2.0 * 81 * n ** 3
+    bytes6 = 18.0 * n * n + 16.0 * n * n
+    b6_ops, b6_bytes = ops8 / INT8_OPS * 1e3, bytes6 / HBM_BYTES * 1e3
+    b5_issue = B5_INT_OPS * n ** 3 / (INT32_LANES * sms * clock) * 1e3
+    b5_bytes = 32.0 * n * n / HBM_BYTES * 1e3
+    log(f"bounds n={n}: B6 {b6_ops:.3f} ms by int8 operations "
+        f"({b6_bytes:.3f} ms by bytes); B5 {B5_INT_OPS} int32 operations "
+        f"per product -> {b5_issue:.3f} ms at {INT32_LANES} per clock per "
+        f"SM on {sms} SMs at {clock / 1e6:.0f} MHz ({b5_bytes:.3f} ms by "
+        f"bytes)")
+    shape = [n, n, n]
+    out["gemm_bits_cuda"] = dict(
+        ms=t_b5, plain_ms=t_p5, bound_ms=max(b5_issue, b5_bytes),
+        bound_by="operations" if b5_issue >= b5_bytes else "bytes",
+        library_ms=t_lib, shape=shape, plain_shape=[pm, pk, pn])
+    out["gemm_bits_mxu_cuda"] = dict(
+        ms=t_b6, plain_ms=t_p6, bound_ms=max(b6_ops, b6_bytes),
+        bound_by="operations" if b6_ops >= b6_bytes else "bytes",
+        library_ms=t_lib, shape=shape, plain_shape=[pm, pk, pn])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Summary
+# ---------------------------------------------------------------------------
+
+HBM_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
+INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core ops/s
+INT32_LANES = 64      # int32 operations per clock per H100 SM
+# Integer operations an exact product needs at least on 32-bit units: four
+# 32x32->64 multiply-adds form the 106-bit product of two 53-bit
+# significands, three shifts place it at its bit offset, four adds with
+# carry add it to a 128-bit sum.  Decoding is per element of A and B, not
+# per product, and is left out.
+B5_INT_OPS = 11
+
 KERNELS = (
     ("exsum_acc_cuda", "exblas_tpu_torch/ops/kernels/csrc/sum_kernel.cu",
-     "exblas_tpu/ops/kernels/sum_kernel.py:259"),
+     "exblas_tpu/ops/kernels/sum_kernel.py:259", 8, "torch.sum"),
     ("exsum_bits_cuda", "exblas_tpu_torch/ops/kernels/csrc/sum_kernel.cu",
-     "exblas_tpu/ops/kernels/sum_kernel.py:375"),
+     "exblas_tpu/ops/kernels/sum_kernel.py:375", 8, "torch.sum"),
     ("exdot_acc_cuda", "exblas_tpu_torch/ops/kernels/csrc/dot_kernel.cu",
-     "exblas_tpu/ops/kernels/dot_kernel.py:250"),
+     "exblas_tpu/ops/kernels/dot_kernel.py:250", 16, "torch.dot"),
     ("exdot_bits_cuda", "exblas_tpu_torch/ops/kernels/csrc/dot_kernel.cu",
-     "exblas_tpu/ops/kernels/dot_kernel.py:325"),
+     "exblas_tpu/ops/kernels/dot_kernel.py:325", 16, "torch.dot"),
+)
+GEMM_KERNELS = (
+    ("gemm_bits_cuda", "exblas_tpu_torch/ops/kernels/csrc/gemm_kernel.cu",
+     "exblas_tpu/ops/kernels/gemm_kernel.py:179"),
+    ("gemm_bits_mxu_cuda", "exblas_tpu_torch/ops/kernels/csrc/gemm_mxu.cu",
+     "exblas_tpu/ops/kernels/gemm_mxu.py:509"),
 )
 
 
@@ -362,16 +830,33 @@ def main() -> None:
     smi = phase_device()
     import exblas_tpu_torch as xt
 
+    t0 = time.perf_counter()
     phase_build()
     errs = phase_kernels(xt)
     launches = phase_public_api(xt)
+    errs.update(phase_gemm_kernels(xt))
+    bench = gemm_bench_data(xt, N_GEMM)
+    gemm_launches, gemm_errs = phase_gemm_public(xt, bench)
+    launches.update(gemm_launches)
+    for name, e in gemm_errs.items():
+        errs[name] = max(errs[name], e)
     times = phase_timing(xt, smi)
-    summary = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, src, rep in KERNELS
-    ]
+    gemm_times = phase_gemm_timing(xt, smi, bench)
+    summary = []
+    for name, src, rep, bpe, lib in KERNELS:
+        t_k, t_p, t_n = times[name]
+        summary.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": t_k, "plain_ms": t_p,
+            "bound_ms": bpe * N_BIG / HBM_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": t_n, "shape": [N_BIG], "library": lib})
+    for name, src, rep in GEMM_KERNELS:
+        summary.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name], "max_abs_err": errs[name],
+            **gemm_times[name], "library": "torch.addmm"})
+    log(f"chip_smoke seconds {time.perf_counter() - t0:.1f}")
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

@@ -2,17 +2,19 @@
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of ``exblas_tpu`` (JAX on a TPU), held bit for bit against it.
-Every routine returns the correctly rounded float64 of the exact result,
-so its bits cannot depend on element order, launch geometry or
-partitioning.  CPU tensors take the plain PyTorch integer path; CUDA
-tensors take the kernels in ``ops/kernels``, built with ``nvcc`` at first
-use.
+``exsum``, ``exdot`` and ``exgemm`` return the correctly rounded float64
+of the exact result (per element for ``exgemm``), so their bits cannot
+depend on element order, launch geometry or partitioning.  CPU tensors
+take the plain PyTorch integer path; CUDA tensors take the kernels in
+``ops/kernels``, built with ``nvcc`` at first use.  Numpy input goes to
+the current CUDA device unless the call names ``device``.
 
 Importing the package configures nothing global and imports no JAX.
 """
 
 from . import core
-from .ops import exdot, exdot_acc, exdot_bits, exsum, exsum_acc, exsum_bits
+from .ops import (exdot, exdot_acc, exdot_bits, exgemm, exgemm_bits, exsum,
+                  exsum_acc, exsum_bits)
 from .utils.generators import (
     init_fpuniform,
     init_fpuniform_matrix,
@@ -34,6 +36,8 @@ __all__ = [
     "exdot",
     "exdot_acc",
     "exdot_bits",
+    "exgemm",
+    "exgemm_bits",
     "init_fpuniform",
     "init_fpuniform_matrix",
     "init_fpuniform_tr_matrix",

@@ -21,7 +21,7 @@ from .ieee import FRAC_MASK, decode_fields
 from .types import F64_EXP_SPECIAL, LIMB_BITS, LIMB_MASK
 
 __all__ = ["split_value30", "classify", "sum_terms", "mant_pieces14",
-           "product_terms"]
+           "product_terms", "segment_deposit_products"]
 
 
 def split_value30(c, r):
@@ -138,3 +138,23 @@ def product_terms(bits_a, bits_b, offset_bits: int):
     ninf = (is_inf & (sign == 1)).to(torch.int64)
     return dict(q=q, r=r, classes=tuple(classes), s=s, valid=valid,
                 nan=nan, pinf=pinf, ninf=ninf)
+
+
+def segment_deposit_products(limbs_flat, t, seg_base):
+    """Exact deposit of ``product_terms`` ``t`` into flattened per-row limb
+    accumulators, in place: the pieces of term ``i`` are ``index_add_``-ed
+    at ``seg_base[i] + q[i] + ...`` of ``limbs_flat`` (int64 (R * L,)).
+    ``seg_base`` (row id * L) broadcasts against t's arrays.  Returns
+    ``limbs_flat``.  Up to 5 pieces below 2^20 land on one limb per term,
+    so a row takes at most 2^40 terms."""
+    q, r, s = t["q"], t["r"], t["s"]
+    for k, cls in enumerate(t["classes"]):
+        # class k sits at bit offset 14k above the product LSB
+        pbit = r + 14 * k
+        dq = torch.div(pbit, LIMB_BITS, rounding_mode="floor")
+        pieces = split_value30(cls, pbit - dq * LIMB_BITS)
+        base = seg_base + q + dq
+        for off, piece in enumerate(pieces):
+            idx, val = torch.broadcast_tensors(base + off, piece * s)
+            limbs_flat.index_add_(0, idx.reshape(-1), val.reshape(-1))
+    return limbs_flat

@@ -109,11 +109,16 @@ def ieee_encode_round(sign, e_msb, m55, sticky_below):
     return torch.where(sign != 0, bits | _SIGN_BIT, bits)
 
 
-def round_digits_to_f64_bits(digits, negative, fmt: AccFormat):
+def round_digits_to_f64_bits(digits, negative, fmt: AccFormat,
+                             offset_bits=None):
     """Round canonical base-2^20 digits (..., L) to binary64 bits (int64).
 
-    Bit p of the accumulator has exponent ``p - fmt.offset_bits``.
+    Bit p of the accumulator has exponent ``p - offset_bits``, where
+    ``offset_bits`` defaults to ``fmt.offset_bits`` and may be an int64
+    tensor of shape (...,) for accumulators anchored per element.
     """
+    if offset_bits is None:
+        offset_bits = fmt.offset_bits
     n_limbs = digits.shape[-1]
     mag = torch.where(negative[..., None], negate_digits(digits),
                       digits).to(torch.int64)
@@ -151,7 +156,7 @@ def round_digits_to_f64_bits(digits, negative, fmt: AccFormat):
     sticky = ((idxs < j0[..., None]) & nonzero).any(dim=-1)
     sticky = sticky | ((d0 & ((1 << shift) - 1)) != 0)
 
-    bits = ieee_encode_round(negative.to(torch.int64), p_msb - fmt.offset_bits,
+    bits = ieee_encode_round(negative.to(torch.int64), p_msb - offset_bits,
                              m55, sticky)
     return torch.where(any_nonzero, bits, torch.zeros_like(bits))
 

@@ -5,11 +5,16 @@ Counterpart of ``exblas_tpu/ops/exsum.py``.  The API mirrors the reference's
 validated and ``early_exit`` accepted for fidelity; neither changes the
 launch or the bits: the CUDA kernels run one geometry for every call.
 
+Devices: tensors stay where they are.  Numpy arrays and Python sequences
+go to the current CUDA device, or to ``device`` when the caller names one
+(``device="cpu"`` asks for the CPU); with no CUDA device and no
+``device``, they raise.
+
 Implementations ("impl"):
   * ``"torch"`` -- the plain PyTorch integer path (any device);
   * ``"cuda"``  -- the CUDA kernels (``ops/kernels/sum_kernel.py``);
-  * ``None``    -- follows the tensor's device: CUDA tensors take the
-                   kernels, CPU tensors the plain path.
+  * ``None``    -- follows the device: CUDA tensors take the kernels, CPU
+                   tensors the plain path.
 ``"cuda"`` on a CPU tensor raises; ``"torch"`` on a CUDA tensor runs the
 plain path on the card, as asked.
 """
@@ -50,33 +55,60 @@ def resolve_impl(impl: str | None, device: torch.device) -> str:
     return impl
 
 
-def as_f64_vector(x, inc: int = 1, offset: int = 0) -> torch.Tensor:
-    """``x[offset::inc]`` as a contiguous 1-D float64 tensor on x's device
-    (numpy arrays and sequences become CPU tensors)."""
+def target_device(*xs, device=None) -> torch.device:
+    """The device a call on operands ``xs`` runs on (see module doc):
+    ``device`` if given, else that of the tensor operands (which must
+    agree), else the current CUDA device."""
+    if device is not None:
+        return torch.device(device)
+    devs = {x.device for x in xs if isinstance(x, torch.Tensor)}
+    if len(devs) > 1:
+        raise ValueError(
+            f"operands on several devices: {sorted(map(str, devs))}")
+    if devs:
+        return devs.pop()
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device for numpy or sequence input: pass CPU tensors "
+            "or device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def as_f64(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a float64 tensor on ``device``, keeping its shape."""
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x, dtype=np.float64))
-    x = x.reshape(-1)
+    return x.to(device=device, dtype=torch.float64)
+
+
+def as_f64_vector(x, inc: int, offset: int,
+                  device: torch.device) -> torch.Tensor:
+    """``x[offset::inc]`` as a contiguous 1-D float64 tensor on
+    ``device``."""
+    x = as_f64(x, device).reshape(-1)
     if offset or inc != 1:
         x = x[offset::inc]
-    return x.to(torch.float64).contiguous()
+    return x.contiguous()
 
 
 def exsum_acc(x, inca: int = 1, offset: int = 0, fpe: int = 2,
-              early_exit: bool = False, impl: str | None = None) -> Superacc:
+              early_exit: bool = False, impl: str | None = None,
+              device=None) -> Superacc:
     """Exact sum into a Superacc (mergeable, serializable)."""
     _validate_fpe(fpe)
-    x = as_f64_vector(x, inca, offset)
+    x = as_f64_vector(x, inca, offset, target_device(x, device=device))
     if resolve_impl(impl, x.device) == "cuda":
         return sum_kernel.exsum_acc_cuda(x)
     return sum_kernel.exsum_acc_torch(x)
 
 
 def exsum_bits(x, inca: int = 1, offset: int = 0, fpe: int = 2,
-               early_exit: bool = False, impl: str | None = None
-               ) -> torch.Tensor:
-    """Exact sum as binary64 bits: a 0-dim int64 tensor on x's device."""
+               early_exit: bool = False, impl: str | None = None,
+               device=None) -> torch.Tensor:
+    """Exact sum as binary64 bits: a 0-dim int64 tensor on the call's
+    device."""
     _validate_fpe(fpe)
-    x = as_f64_vector(x, inca, offset)
+    x = as_f64_vector(x, inca, offset, target_device(x, device=device))
     if resolve_impl(impl, x.device) == "cuda":
         return sum_kernel.exsum_bits_cuda(x)
     return sum_kernel.exsum_bits_torch(x)
@@ -84,7 +116,7 @@ def exsum_bits(x, inca: int = 1, offset: int = 0, fpe: int = 2,
 
 def exsum(x, inca: int = 1, offset: int = 0, fpe: int = 2,
           early_exit: bool = False, impl: str | None = None,
-          parallel: bool = True) -> float:
+          parallel: bool = True, device=None) -> float:
     """Correctly rounded, reproducible sum(x[offset::inca]) -> Python float.
 
     ``parallel=False`` mirrors the reference's TBB knob: the sum runs
@@ -95,7 +127,8 @@ def exsum(x, inca: int = 1, offset: int = 0, fpe: int = 2,
         from ..cpu_backend import exsum_cpu
 
         _validate_fpe(fpe)
-        x = as_f64_vector(x, inca, offset)
-        return exsum_cpu(x.cpu().numpy(), num_threads=1)
+        x = as_f64_vector(x, inca, offset, torch.device("cpu"))
+        return exsum_cpu(x.numpy(), num_threads=1)
     return bits_to_float(exsum_bits(x, inca=inca, offset=offset, fpe=fpe,
-                                    early_exit=early_exit, impl=impl))
+                                    early_exit=early_exit, impl=impl,
+                                    device=device))

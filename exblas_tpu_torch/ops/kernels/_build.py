@@ -1,8 +1,9 @@
 """Build, load and launch the package's native libraries.
 
-``ops/kernels/csrc/*.cu`` is compiled at first use by ``nvcc`` into one
+``ops/kernels/csrc/*.cu`` is compiled at first use by ``nvcc`` -- one
+process per source, all at once, into objects -- and linked into one
 shared library with a plain C interface, ``build/kernels/`` under the
-checkout, and loaded with ``ctypes``.  Every C entry point takes its
+checkout, loaded with ``ctypes``.  Every C entry point takes its
 pointers and the CUDA stream as ``void*`` and returns ``cudaGetLastError()``
 of its launches; :func:`check` raises if that is not 0.
 
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -24,16 +26,22 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libexblas_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
+_I = ctypes.c_int
 # C entry points: argument types, in order.
 SIGNATURES = {
     "exsum_acc_cuda": (_P, _N, _P, _P, _P, _P),
     "exsum_bits_cuda": (_P, _N, _P, _P, _P),
     "exdot_acc_cuda": (_P, _P, _N, _P, _P, _P, _P),
     "exdot_bits_cuda": (_P, _P, _N, _P, _P, _P),
+    "gemm_bits_cuda": (_P, _P, _P, _N, _I, _N, _N, _N, _P, _P),
+    "mxu_classes_cuda": (_P, _P, _I, _I, _N, _N, _N, _N, _N, _N, _P, _P),
+    "mxu_digits_cuda": (_P, _N, _N, _P, _I, _N, _N, _P, _P),
+    "mxu_round_cuda": (_P, _I, _N, _N, _P, _P, _P, _N, _I, _N, _N, _I, _I,
+                       _P, _P),
 }
 
 _lock = threading.Lock()
@@ -54,9 +62,24 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def object_path(src: Path) -> Path:
+    return BUILD_DIR / f"{src.stem}.o"
+
+
+def object_command(src: Path):
+    """out -> the argv that compiles ``src`` into the object ``out``."""
+    return lambda out: [find_nvcc(), *NVCC_FLAGS, "-c", "-o", str(out),
+                        str(src)]
+
+
 def build_command(out: Path) -> list[str]:
-    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out),
-            *(str(s) for s in sources())]
+    """The link of every source's object into the library."""
+    return [find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(out),
+            *(str(object_path(s)) for s in sources())]
 
 
 def compile_library(out: Path, deps: list[Path], command,
@@ -81,8 +104,13 @@ def compile_library(out: Path, deps: list[Path], command,
 
 def build(force: bool = False) -> Path:
     """Compile the CUDA kernels into ``LIB_PATH`` (see module doc)."""
-    deps = sources() + sorted(CSRC.glob("*.cuh"))
-    return compile_library(LIB_PATH, deps, build_command, force=force)
+    srcs = sources()
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        objs = list(pool.map(
+            lambda s: compile_library(object_path(s), [s, *headers()],
+                                      object_command(s), force=force),
+            srcs))
+    return compile_library(LIB_PATH, objs, build_command, force=force)
 
 
 def library() -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-// Deposits shared by the ExSUM and ExDOT kernels.
+// Deposits shared by the ExSUM, ExDOT and ExGEMM kernels.
 //
 // A deposit adds one exact term -- a significand (ExSUM, < 2^73) or a
 // product of significands (ExDOT, < 2^125), already shifted left by its
@@ -42,6 +42,12 @@ inline cudaError_t deposit_grid(long long n, int* grid) {
   *grid = static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
   return cudaSuccess;
 }
+
+// DOT_FORMAT: 216 limbs of 20 bits, bit 0 at 2^-2148; a 106-bit product
+// shifted by r < 20 spans 7 digits.
+constexpr int kDotLimbs = 216;
+constexpr int kDotOffset = 2148;
+constexpr int kDigits = 7;
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kBins = 4;
@@ -168,6 +174,84 @@ struct BinWindow {
     }
   }
 };
+
+// The fields of one binary64 pattern.
+struct Decoded {
+  int expf;
+  unsigned long long mant;  // significand with the implicit bit
+  bool zero, inf, nan;
+};
+
+__device__ __forceinline__ Decoded decode(long long b) {
+  Decoded d;
+  d.expf = static_cast<int>((b >> 52) & 0x7FF);
+  const unsigned long long frac =
+      static_cast<unsigned long long>(b) & ((1ULL << 52) - 1ULL);
+  d.mant = (d.expf != 0 && d.expf != 0x7FF) ? (frac | (1ULL << 52)) : frac;
+  d.zero = d.expf == 0 && frac == 0ULL;
+  d.inf = d.expf == 0x7FF && frac == 0ULL;
+  d.nan = d.expf == 0x7FF && frac != 0ULL;
+  return d;
+}
+
+// Decode one product a*b (int64 bits of each) into its base limb q and the
+// exact product of the significands shifted left by r = p % 20,
+// (hi:lo) < 2^125, to be added at limb q with the product's sign
+// (*negative).  Bit p of the accumulator has exponent p - offset_bits, and
+// p >= 0 must hold for every finite nonzero product (DOT_FORMAT's 2148
+// guarantees it).  NaN/+Inf/-Inf products are counted and, like zero
+// products, deposit nothing (valid == false).
+__device__ __forceinline__ bool decode_product(
+    long long ba, long long bb, int offset_bits, int& q,
+    unsigned long long& lo, unsigned long long& hi, bool& negative,
+    long long& nan_c, long long& pinf_c, long long& ninf_c) {
+  const Decoded da = decode(ba);
+  const Decoded db = decode(bb);
+  negative = (ba ^ bb) < 0;
+  if (da.nan || db.nan || (da.inf && db.zero) || (db.inf && da.zero)) {
+    ++nan_c;
+  } else if (da.inf || db.inf) {
+    if (negative) {
+      ++ninf_c;
+    } else {
+      ++pinf_c;
+    }
+  }
+  // Product LSB bit position p = Ea + Eb + offset_bits, E = max(expf,1)-1075.
+  int p = (da.expf > 1 ? da.expf : 1) + (db.expf > 1 ? db.expf : 1) -
+          2 * 1075 + offset_bits;
+  const bool valid = da.expf != 0x7FF && db.expf != 0x7FF && !da.zero &&
+                     !db.zero && p >= 0;
+  const unsigned long long ma = valid ? da.mant : 0ULL;
+  const unsigned long long mb = valid ? db.mant : 0ULL;
+  p = valid ? p : 0;
+  q = p / 20;
+  const int r = p - q * 20;
+  // Exact 106-bit product, shifted left by r < 20: hi < 2^61.
+  lo = ma * mb;
+  hi = __umul64hi(ma, mb);
+  if (r != 0) {
+    hi = (hi << r) | (lo >> (64 - r));
+    lo <<= r;
+  }
+  return valid;
+}
+
+// Adds the ND digits of +-(m1:m0) to limbs q.. of a thread's own int64
+// accumulator of L limbs (no atomics); digits outside [0, L) are dropped,
+// which callers rule out by their range checks.
+template <int ND>
+__device__ __forceinline__ void add_digits(long long* limbs, int L, int q,
+                                           unsigned long long m0,
+                                           unsigned long long m1,
+                                           bool negative) {
+  const unsigned long long w[2] = {m0, m1};
+#pragma unroll
+  for (int t = 0; t < ND; ++t) {
+    const long long d = digit_at<2>(w, t);
+    if (d != 0 && q + t >= 0 && q + t < L) limbs[q + t] += negative ? -d : d;
+  }
+}
 
 // Adds the per-thread special counts of a block to s_acc[L..L+2].
 __device__ __forceinline__ void deposit_specials(unsigned long long* s_acc,

@@ -39,74 +39,12 @@
 
 namespace {
 
-using exblas::kLimbBits;
-using exblas::kLimbMask;
+using exblas::kDigits;
+using exblas::kDotLimbs;
+using exblas::kDotOffset;
 
-constexpr int kDotLimbs = 216;    // DOT_FORMAT.n_limbs
-constexpr int kDotOffset = 2148;  // DOT_FORMAT.offset_bits
 constexpr int kWs = kDotLimbs + 3;
-constexpr int kDigits = 7;
 constexpr int kUnroll = 4;  // products loaded per thread per step
-
-struct Decoded {
-  int expf;
-  unsigned long long mant;  // significand with the implicit bit
-  bool zero, inf, nan;
-};
-
-__device__ __forceinline__ Decoded decode(long long b) {
-  Decoded d;
-  d.expf = static_cast<int>((b >> 52) & 0x7FF);
-  const unsigned long long frac =
-      static_cast<unsigned long long>(b) & ((1ULL << 52) - 1ULL);
-  d.mant = (d.expf != 0 && d.expf != 0x7FF) ? (frac | (1ULL << 52)) : frac;
-  d.zero = d.expf == 0 && frac == 0ULL;
-  d.inf = d.expf == 0x7FF && frac == 0ULL;
-  d.nan = d.expf == 0x7FF && frac != 0ULL;
-  return d;
-}
-
-// Decode one product a*b (int64 bits of each) into its base limb q and the
-// exact product of the significands shifted left by r = p % 20,
-// (hi:lo) < 2^125, to be added at limb q with the product's sign
-// (*negative).  NaN/+Inf/-Inf products are counted and, like zero
-// products, deposit nothing (valid == false).
-__device__ __forceinline__ bool decode_dot(long long ba, long long bb, int& q,
-                                           unsigned long long& lo,
-                                           unsigned long long& hi,
-                                           bool& negative, long long& nan_c,
-                                           long long& pinf_c,
-                                           long long& ninf_c) {
-  const Decoded da = decode(ba);
-  const Decoded db = decode(bb);
-  negative = (ba ^ bb) < 0;
-  if (da.nan || db.nan || (da.inf && db.zero) || (db.inf && da.zero)) {
-    ++nan_c;
-  } else if (da.inf || db.inf) {
-    if (negative) {
-      ++ninf_c;
-    } else {
-      ++pinf_c;
-    }
-  }
-  const bool valid =
-      da.expf != 0x7FF && db.expf != 0x7FF && !da.zero && !db.zero;
-  const unsigned long long ma = valid ? da.mant : 0ULL;
-  const unsigned long long mb = valid ? db.mant : 0ULL;
-  // Product LSB bit position p = Ea + Eb + 2148 >= 0, E = max(expf,1)-1075.
-  const int p = (da.expf > 1 ? da.expf : 1) + (db.expf > 1 ? db.expf : 1) -
-                2 * 1075 + kDotOffset;
-  q = p / kLimbBits;
-  const int r = p - q * kLimbBits;
-  // Exact 106-bit product, shifted left by r < 20: hi < 2^61.
-  lo = ma * mb;
-  hi = __umul64hi(ma, mb);
-  if (r != 0) {
-    hi = (hi << r) | (lo >> (64 - r));
-    lo <<= r;
-  }
-  return valid;
-}
 
 __global__ void __launch_bounds__(exblas::kBlock)
     dot_deposit_kernel(const long long* __restrict__ a,
@@ -134,8 +72,9 @@ __global__ void __launch_bounds__(exblas::kBlock)
       int q;
       unsigned long long lo, hi;
       bool negative;
-      const bool valid = decode_dot(va[u], vb[u], q, lo, hi, negative, nan_c,
-                                    pinf_c, ninf_c);
+      const bool valid =
+          exblas::decode_product(va[u], vb[u], kDotOffset, q, lo, hi,
+                                 negative, nan_c, pinf_c, ninf_c);
       window.add(valid, q, lo, hi, negative, s_acc);
     }
   }

@@ -113,6 +113,70 @@ __device__ __forceinline__ unsigned long long round_digits(
                       m55 & ((1ULL << 55) - 1ULL), sticky);
 }
 
+// Round the exact value sum_j limbs[j] * 2^(20 j) of a thread's own int64
+// limbs to binary64 bits; bit p has exponent p - offset_bits.  Limbs outside
+// [jlo, jhi] must be zero (jhi < jlo: the value is zero), so only that range
+// and one limb above it are canonicalized, in place: past the last nonzero
+// limb the carry is 0 or -1, and the digits above are 0 or all ones.  The
+// same steps as round_digits; an exact zero is +0.0.  Shared by the GEMM
+// kernels, one element per call.
+__device__ __forceinline__ unsigned long long round_limbs(long long* limbs,
+                                                          int jlo, int jhi,
+                                                          int L,
+                                                          int offset_bits) {
+  if (jhi < jlo) return 0ULL;
+  const int jtop = jhi + 1 < L ? jhi + 1 : L - 1;
+  long long carry = 0;
+  for (int j = jlo; j <= jtop; ++j) {
+    const long long d = limbs[j] + carry;
+    const long long digit = d & kLimbMask;
+    limbs[j] = digit;
+    carry = (d - digit) >> kLimbBits;
+  }
+  const bool negative = carry < 0;
+  if (negative) {  // digits below jlo are 0, so the borrow starts at jlo
+    long long borrow = 1;
+    for (int j = jlo; j <= jtop; ++j) {
+      const long long t = (limbs[j] ^ kLimbMask) + borrow;
+      limbs[j] = t & kLimbMask;
+      borrow = t >> kLimbBits;
+    }
+  }
+  int jstar = jtop;
+  while (jstar >= jlo && limbs[jstar] == 0) --jstar;
+  if (jstar < jlo) return 0ULL;
+  const int p_msb = jstar * kLimbBits + (63 - __clzll(limbs[jstar]));
+  const int pos_low = p_msb - 54;
+  const int j0 = (pos_low + 60) / kLimbBits - 3;  // floor(pos_low / 20)
+  unsigned long long m55 = 0ULL;
+  bool sticky = false;
+  for (int j = jlo; j < j0; ++j) sticky = sticky || limbs[j] != 0;
+  for (int j = j0 < jlo ? jlo : j0; j <= jstar; ++j) {
+    const unsigned long long d = static_cast<unsigned long long>(limbs[j]);
+    const int s = kLimbBits * j - pos_low;  // this digit's lsb in the window
+    if (s >= 0) {
+      m55 |= d << s;
+    } else {
+      m55 |= d >> (-s);
+      sticky = sticky || (d & ((1ULL << (-s)) - 1ULL)) != 0ULL;
+    }
+  }
+  return encode_round(negative, p_msb - offset_bits,
+                      m55 & ((1ULL << 55) - 1ULL), sticky);
+}
+
+// limbs += v * 2^p for a signed |v| < 2^43 and p >= 0: three pieces at
+// limbs q, q+1, q+2 (q = p / 20), the top one signed.  The caller's L
+// must exceed q + 2.
+__device__ __forceinline__ void add_scaled(long long* limbs, long long v,
+                                           int p) {
+  const int q = p / kLimbBits;
+  const long long w = v * (1LL << (p - q * kLimbBits));  // |w| < 2^62
+  limbs[q] += w & kLimbMask;
+  limbs[q + 1] += (w >> kLimbBits) & kLimbMask;
+  limbs[q + 2] += w >> (2 * kLimbBits);
+}
+
 __device__ __forceinline__ unsigned long long apply_specials(
     unsigned long long bits, long long nan_c, long long pinf_c,
     long long ninf_c) {

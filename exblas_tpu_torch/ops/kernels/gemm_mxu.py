@@ -1,0 +1,328 @@
+"""ExGEMM on the int8 tensor cores: exact Ozaki-Kulisch slices (CUDA,
+``csrc/gemm_mxu.cu``), their host-side preparation and the plain version.
+
+Counterpart of ``exblas_tpu/ops/kernels/gemm_mxu.py`` (``gemm_bits_mxu``
+and its XLA-level preparation):
+
+* anchors ``E_i`` (max exponent of row i of A) and ``F_j`` (of column j of
+  B) and the operands' spreads (:func:`analyze_gemm_operands`);
+* each element recoded into ``n_slices + 1`` balanced signed base-256
+  digits aligned to its anchor (:func:`make_digits`): digit u has weight
+  ``2^(anchor + 1 - 8u)``, u = 0 the carry digit in {-1, 0, 1}.  An element
+  is covered iff its lsb lies within ``8 * n_slices`` bits of the anchor;
+  the dispatcher (``ops/exgemm.py``) checks coverage, and uncovered data
+  must never reach these functions;
+* the digit-pair products ``M_st = A_s @ B_t`` summed per class
+  ``c = s + t`` and rounded once per element:
+  ``sum_c M_c * 2^(E_i + F_j + 2 - 8c)`` (+ the exact ``beta * c``).
+
+:func:`gemm_bits_mxu_cuda` is the port of ``gemm_bits_mxu``: on CUDA
+bit tensors it launches the digit kernel (the preparation the JAX package
+left to XLA), the class kernel and the rounding kernel, with no fallback,
+and counts one launch per call.  :func:`gemm_bits_mxu_torch` is its plain
+version: :func:`mxu_operands`, then the class sums by float64 matrix
+products of the digit planes, which are exact (every partial sum is an
+integer below 2^53: ``|M_c| < 2^14 * 49 * k``), then the same combination
+and rounding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ...core import deposit as dep
+from ...core.ieee import FRAC_MASK, decode_fields
+from ...core.rounding import canonicalize_digits, round_digits_to_f64_bits
+from ...core.types import DOT_FORMAT, LIMB_BITS, LIMB_MASK
+from . import _build
+from ._build import ptr, stream_of
+from .gemm_kernel import _beta_code, check_cuda_bits
+
+__all__ = ["analyze_gemm_operands", "make_digits", "mxu_l_rel",
+           "MXU_BETA_HEAD", "MxuOperands", "mxu_operands",
+           "mxu_operands_cuda", "gemm_bits_mxu_cuda", "gemm_bits_mxu_torch"]
+
+TILE = 32           # output tile of the class kernel; k step of one mma
+ROW_TILE = 64       # rows of the rung (8, 8) class kernel's tile
+MAX_REL_LIMBS = 48  # kMaxRel in csrc/gemm_mxu.cu
+CLS_BYTES = 1 << 32  # int64 class sums held at once; more rows run in turns
+
+# Bits of headroom above the anchor that beta*C products may occupy (the
+# three extra limbs of mxu_l_rel minus two limbs' carry slack).
+MXU_BETA_HEAD = 36
+
+
+def _exp_msb(bits):
+    """(e, valid, special): the exponent of each element's leading bit
+    (int64), whether the element is finite and nonzero, and whether it is
+    NaN or Inf.  A subnormal's leading bit is found exactly through the
+    float64 exponent of its integer fraction (< 2^52, exact in float64)."""
+    expf = (bits >> 52) & 0x7FF
+    frac = bits & FRAC_MASK
+    special = expf == 0x7FF
+    valid = ~special & ((expf != 0) | (frac != 0))
+    msb = (frac.to(torch.float64).view(torch.int64) >> 52) - 1023
+    return torch.where(expf == 0, msb - 1074, expf - 1023), valid, special
+
+
+def _anchor_spread(bits, dim: int):
+    """Anchors along ``dim`` (largest leading-bit exponent; -10000 where
+    every element is zero or special) and the operand's spread: the
+    largest anchor - element lsb + 1, i.e. anchor - smallest exponent + 53
+    over the rows (or columns) that hold a finite nonzero element."""
+    e, valid, special = _exp_msb(bits)
+    anchor = torch.where(valid, e, -10000).amax(dim=dim)
+    low = torch.where(valid, e, 10000).amin(dim=dim)
+    spread = torch.where(anchor > -10000, anchor - low + 53, 0).amax()
+    return anchor, spread, special.any()
+
+
+def analyze_gemm_operands(a_bits, b_bits):
+    """Anchors and coverage spreads of A (m, k) and B (k, n): (ea (m,),
+    fb (n,), spread_a, spread_b, has_special), int64/bool tensors.
+    spread_x is the largest (anchor - element lsb exponent + 1) over x's
+    nonzero finite elements (lsb taken as e_msb - 52, conservative for
+    trailing zeros); rung (sa, sb) covers spread_a <= 8 sa and
+    spread_b <= 8 sb."""
+    ea, spread_a, spec_a = _anchor_spread(a_bits, 1)
+    fb, spread_b, spec_b = _anchor_spread(b_bits, 0)
+    return ea, fb, spread_a, spread_b, spec_a | spec_b
+
+
+def _extract8(mant, s):
+    """Bits [s, s + 8) of the 53-bit significands ``mant``; 0 past bit 60."""
+    up = ((mant << (-s).clamp(0, 62)) & 0xFF)
+    down = ((mant >> s.clamp(0, 62)) & 0xFF)
+    return torch.where(s < 0, up, down)
+
+
+def make_digits(bits, anchors, n_slices: int, axis: int):
+    """Balanced signed base-256 digits as int8 (n_slices + 1, *bits.shape).
+
+    Digit u holds weight 2^(anchor + 1 - 8u); u = 0 is the carry digit in
+    {-1, 0, 1}, u >= 1 the recoded bytes, each in [-128, 127].  The recode
+    is exact for covered elements; zeros and specials give zero digits.
+    axis=0: one anchor per row ((m,)); axis=1: one per column ((k,))."""
+    sign, expf, mant = decode_fields(bits)
+    e_lsb = expf.clamp(min=1) - 1075
+    anc = anchors[:, None] if axis == 0 else anchors[None, :]
+    sgn = 1 - 2 * sign
+    valid = (expf != 0x7FF) & ((expf != 0) | (mant != 0))
+    out = [None] * (n_slices + 1)
+    carry = torch.zeros_like(sgn)
+    for s in reversed(range(n_slices)):  # least significant slice first
+        cut = anc + 1 - 8 * (s + 1)
+        byte = torch.where(valid, _extract8(mant, cut - e_lsb), 0)
+        t = sgn * byte + carry               # in [-256, 256]
+        d = ((t + 128) & 255) - 128          # in [-128, 127]
+        carry = (t - d) >> 8                 # in {-1, 0, 1}
+        out[s + 1] = d.to(torch.int8)
+    out[0] = carry.to(torch.int8)
+    return torch.stack(out)
+
+
+def _spill_run(sa: int, sb: int) -> int:
+    """k elements between widenings of the int32 class sums: a class takes
+    (min(sa, sb) + 1) digit pairs of |d_s d_t| <= 2^14 per k element, so
+    ``run * (min + 1) <= 36000`` keeps it below 2^29.2."""
+    allowed = 36000 // (min(sa, sb) + 1)
+    return max(256, 1 << (allowed.bit_length() - 1))
+
+
+def mxu_l_rel(sa: int, sb: int, beta_mode: str, k_pad: int) -> int:
+    """Relative-accumulator depth (limbs) for a digit configuration.
+
+    Class deposits land in [0, rel0 + 42] bits; the exact value is below
+    k * 2^e_base, i.e. relative bit rel0 + ceil(log2 k).  beta*C products
+    may reach MXU_BETA_HEAD bits above the anchor (coverage-checked by the
+    dispatcher), so the beta modes carry three extra limbs."""
+    rel0 = 8 * (sa + sb)
+    klog = max(k_pad - 1, 1).bit_length()
+    l_rel = (rel0 + max(klog + 1, 8) + 2) // LIMB_BITS + 2
+    if beta_mode != "zero":
+        l_rel += 3
+    return l_rel
+
+
+@dataclasses.dataclass
+class MxuOperands:
+    """Digit planes of one rung, padded for the class kernel: ``ad`` int8
+    (sa+1, m_pad, k_pad) and ``bd`` int8 (sb+1, n_pad, k_pad) (B transposed,
+    k contiguous), the row and column anchors ``ea`` (m,) and ``fb`` (n,)
+    as int32, and the true sizes."""
+
+    ad: torch.Tensor
+    bd: torch.Tensor
+    ea: torch.Tensor
+    fb: torch.Tensor
+    sa: int
+    sb: int
+    m: int
+    n: int
+    k: int
+
+
+def _pad_to(x: int, step: int) -> int:
+    return max(step, -(-x // step) * step)
+
+
+def _anchors(z_bits, b_bits, ea, fb):
+    """The anchors with all-zero rows and columns set to 0 (the
+    dispatcher's, when it passes them)."""
+    if ea is None or fb is None:
+        ea, fb, _, _, _ = analyze_gemm_operands(z_bits, b_bits)
+        ea = torch.where(ea < -9000, 0, ea)
+        fb = torch.where(fb < -9000, 0, fb)
+    return ea, fb
+
+
+def _operands(z_bits, b_bits, sa, sb, ea, fb, digits) -> MxuOperands:
+    m, k = z_bits.shape
+    n = b_bits.shape[1]
+    ea, fb = _anchors(z_bits, b_bits, ea, fb)
+    m_pad, n_pad = _pad_to(m, ROW_TILE), _pad_to(n, TILE)
+    k_pad = _pad_to(k, TILE)
+    return MxuOperands(ad=digits(z_bits, ea, m_pad, k_pad, sa),
+                       bd=digits(b_bits.t(), fb, n_pad, k_pad, sb),
+                       ea=ea.to(torch.int32).contiguous(),
+                       fb=fb.to(torch.int32).contiguous(),
+                       sa=sa, sb=sb, m=m, n=n, k=k)
+
+
+def _digits_torch(x, anchors, rows_pad, k_pad, slices):
+    dev = x.device
+    xp = torch.zeros((rows_pad, k_pad), dtype=torch.int64, device=dev)
+    xp[:x.shape[0], :x.shape[1]] = x
+    ap = torch.zeros(rows_pad, dtype=torch.int64, device=dev)
+    ap[:anchors.shape[0]] = anchors
+    return make_digits(xp, ap, slices, axis=0)
+
+
+def _digits_cuda(x, anchors, rows_pad, k_pad, slices):
+    x = x.contiguous()
+    anchors = anchors.to(torch.int64).contiguous()
+    out = torch.empty((slices + 1, rows_pad, k_pad), dtype=torch.int8,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().mxu_digits_cuda(
+            ptr(x), x.shape[0], x.shape[1], ptr(anchors), slices, rows_pad,
+            k_pad, ptr(out), stream_of(x.device))
+    _build.check(err, "mxu_digits_cuda")
+    return out
+
+
+def mxu_operands(z_bits, b_bits, sa: int, sb: int, ea=None,
+                 fb=None) -> MxuOperands:
+    """The plain preparation of rung (sa, sb) for z (m, k) and b (k, n)
+    bits (:func:`make_digits` on zero-padded copies)."""
+    return _operands(z_bits, b_bits, sa, sb, ea, fb, _digits_torch)
+
+
+def mxu_operands_cuda(z_bits, b_bits, sa: int, sb: int, ea=None,
+                      fb=None) -> MxuOperands:
+    """:func:`mxu_operands` on CUDA tensors, the digit planes written by
+    the digit kernel of ``csrc/gemm_mxu.cu`` (one launch per operand)."""
+    return _operands(z_bits, b_bits, sa, sb, ea, fb, _digits_cuda)
+
+
+def _rel_layout(ops: MxuOperands, beta_mode: str):
+    """(rel0, n_cls, limbs of the rounding accumulator)."""
+    rel0 = 8 * (ops.sa + ops.sb)
+    nl = mxu_l_rel(ops.sa, ops.sb, beta_mode, ops.ad.shape[2]) + 3
+    return rel0, ops.sa + ops.sb + 1, nl
+
+
+def gemm_bits_mxu_cuda(z_bits, b_bits, c_bits, beta_bits: int,
+                       beta_mode: str, sa: int, sb: int, ea=None,
+                       fb=None) -> torch.Tensor:
+    """Exact ExGEMM of covered CUDA bit tensors z (m, k), b (k, n), c (m, n)
+    at rung (sa, sb) -> (m, n) int64 bits: the digit kernel, the class
+    kernel and the rounding kernel.  No specials: the dispatcher overrides
+    those elements.  ``ea``/``fb``: the dispatcher's anchors, if any."""
+    m, k = z_bits.shape
+    n = b_bits.shape[1]
+    check_cuda_bits(z_bits, "gemm_bits_mxu_cuda", (m, k))
+    check_cuda_bits(b_bits, "gemm_bits_mxu_cuda", (k, n))
+    mode, beta = _beta_code(beta_bits, beta_mode)
+    if mode:
+        check_cuda_bits(c_bits, "gemm_bits_mxu_cuda", (m, n))
+    ops = mxu_operands_cuda(z_bits, b_bits, sa, sb, ea, fb)
+    rel0, n_cls, nl = _rel_layout(ops, beta_mode)
+    if nl > MAX_REL_LIMBS:
+        raise ValueError(f"gemm_bits_mxu_cuda: {nl} accumulator limbs "
+                         f"exceed {MAX_REL_LIMBS}")
+    _, m_pad, k_pad = ops.ad.shape
+    n_pad = ops.bd.shape[1]
+    dev = z_bits.device
+    out = torch.empty((m, n), dtype=torch.int64, device=dev)
+    if m * n == 0:
+        return out
+    rows = min(m_pad, max(ROW_TILE, CLS_BYTES // (8 * n_cls * n_pad)
+                          // ROW_TILE * ROW_TILE))
+    cls = torch.empty((n_cls, rows, n_pad), dtype=torch.int64, device=dev)
+    lib = _build.library()
+    stream = stream_of(dev)
+    with torch.cuda.device(dev):
+        for r0 in range(0, m, rows):
+            rr = min(rows, m_pad - r0)
+            err = lib.mxu_classes_cuda(
+                ops.ad.data_ptr() + r0 * k_pad, ptr(ops.bd), sa, sb,
+                m_pad * k_pad, n_pad * k_pad, rr, n_pad, k_pad,
+                _spill_run(sa, sb), ptr(cls), stream)
+            _build.check(err, "mxu_classes_cuda")
+            err = lib.mxu_round_cuda(
+                ptr(cls), n_cls, rr, n_pad, ops.ea.data_ptr() + 4 * r0,
+                ptr(ops.fb), c_bits.data_ptr() + 8 * r0 * n if mode else None,
+                beta, mode, min(rr, m - r0), n, nl, rel0,
+                out.data_ptr() + 8 * r0 * n, stream)
+            _build.check(err, "mxu_round_cuda")
+    gemm_bits_mxu_cuda.launches += 1
+    return out
+
+
+gemm_bits_mxu_cuda.launches = 0
+
+
+def class_sums_torch(ops: MxuOperands) -> torch.Tensor:
+    """int64 (n_cls, m, n): M_c = sum_{s+t=c} A_s @ B_t, by float64
+    matrix products of the digit planes (exact, see the module doc)."""
+    m, n, k, sa, sb = ops.m, ops.n, ops.k, ops.sa, ops.sb
+    ad = ops.ad[:, :m, :k].to(torch.float64)
+    bstack = ops.bd[:, :n, :k].to(torch.float64).reshape((sb + 1) * n, k)
+    cls = torch.zeros((sa + sb + 1, m, n), dtype=torch.float64,
+                      device=ad.device)
+    for s in range(sa + 1):
+        p = (ad[s] @ bstack.t()).reshape(m, sb + 1, n).permute(1, 0, 2)
+        cls[s:s + sb + 1] += p
+    return cls.to(torch.int64)
+
+
+def gemm_bits_mxu_torch(z_bits, b_bits, c_bits, beta_bits: int,
+                        beta_mode: str, sa: int, sb: int, ea=None,
+                        fb=None) -> torch.Tensor:
+    """Plain version of :func:`gemm_bits_mxu_cuda` on any device."""
+    ops = mxu_operands(z_bits, b_bits, sa, sb, ea, fb)
+    m, n = ops.m, ops.n
+    rel0, n_cls, nl = _rel_layout(ops, beta_mode)
+    cls = class_sums_torch(ops).reshape(n_cls, m * n)
+    limbs = torch.zeros((m * n, nl), dtype=torch.int64, device=cls.device)
+    for c in range(n_cls):  # class c sits at relative bit rel0 - 8c
+        q, r = divmod(rel0 - 8 * c, LIMB_BITS)
+        w = cls[c] * (1 << r)  # |w| < 2^62
+        limbs[:, q] += w & LIMB_MASK
+        limbs[:, q + 1] += (w >> LIMB_BITS) & LIMB_MASK
+        limbs[:, q + 2] += w >> (2 * LIMB_BITS)
+    e_base = (ops.ea.to(torch.int64)[:, None]
+              + ops.fb.to(torch.int64)[None, :] + 2).reshape(-1)
+    if beta_mode != "zero":
+        _, beta = _beta_code(beta_bits, beta_mode)
+        c = c_bits.reshape(-1)
+        t = dep.product_terms(torch.full_like(c, beta), c, rel0 - e_base)
+        seg = torch.arange(m * n, device=c.device) * nl
+        dep.segment_deposit_products(limbs.view(-1), t, seg)
+    digits, negative = canonicalize_digits(limbs)
+    bits = round_digits_to_f64_bits(digits, negative, DOT_FORMAT,
+                                    offset_bits=rel0 - e_base)
+    return bits.reshape(m, n)

@@ -358,3 +358,51 @@ def test_failed_build_raises(tmp_path):
             out, [src], lambda o: [sys.executable, "-c",
                                    "raise SystemExit('compile error')"])
     assert not out.exists()
+
+
+# --- f64ops: correctly rounded multiply and divide on bit patterns ---------
+
+def _f64ops_pairs():
+    """Every pair of EDGES plus random pairs whose products and quotients
+    land in the subnormal range, overflow, or cancel signs; NaNs with
+    payloads and signs among them."""
+    payloads = np.array([0x7FF0000000000001, 0xFFF8000000000ABC,
+                         0x7FF4000000000000], np.uint64).view(np.float64)
+    edges = np.concatenate([EDGES, payloads])
+    a, b = (x.reshape(-1) for x in np.meshgrid(edges, edges))
+    rs = np.random.RandomState(51)
+    n = 2000
+    ra = (1 + rs.rand(n)) * np.exp2(rs.randint(-1074, 1024, n).astype(float))
+    rb = (1 + rs.rand(n)) * np.exp2(rs.randint(-1074, 1024, n).astype(float))
+    sign = np.where(rs.rand(n) < 0.5, -1.0, 1.0)
+    return np.concatenate([a, ra * sign]), np.concatenate([b, rb])
+
+
+@pytest.mark.parametrize("name", ["f64_mul", "f64_div", "f64_div_pair"])
+def test_f64ops_match_jax(name):
+    from exblas_tpu.core import f64ops as jops
+    from exblas_tpu_torch.core import f64ops as tops
+
+    a, b = _f64ops_pairs()
+    A, B = split_f64(a), split_f64(b)
+    with np.errstate(all="ignore"):
+        native = a * b if name == "f64_mul" else a / b
+    assert (native[np.isfinite(native)] != 0).any()
+    assert (np.abs(native[np.isfinite(native)]) < 2.2250738585072014e-308
+            ).any()  # subnormal results occur
+    got = getattr(tops, name)(f64_bits(_t(a)), f64_bits(_t(b)))
+    want = getattr(jops, name)(A.hi, A.lo, B.hi, B.lo)
+    if name == "f64_div_pair":
+        got_bits = (got[0].numpy().astype(np.uint64) << np.uint64(32)) | \
+            got[1].numpy().astype(np.uint64)
+        want = (np.asarray(want[0]).astype(np.uint64) << np.uint64(32)) | \
+            np.asarray(want[1]).astype(np.uint64)
+    else:
+        got_bits = got.numpy().view(np.uint64)
+        want = np.asarray(want).astype(np.uint64)
+    bad = np.nonzero(got_bits != want)[0]
+    assert bad.size == 0, (f"{name}: {bad.size} differ, e.g. "
+                           f"{a[bad[:3]]} {b[bad[:3]]}")
+    # NaN results are the canonical quiet NaN
+    nan = np.isnan(got_bits.view(np.float64))
+    assert nan.any() and (got_bits[nan] == 0x7FF8000000000000).all()

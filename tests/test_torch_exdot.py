@@ -188,6 +188,18 @@ def test_exdot_shape_and_device_checks():
         xt.exdot(_t([1.0]), _t([1.0]), impl="cuda")
 
 
+def test_exdot_numpy_input_device_rule(monkeypatch):
+    a, b = CASES[3][1](100)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xt.exdot(a, b)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xt.exdot_acc(list(a), list(b))
+    assert bits_of(xt.exdot(a, b, device="cpu")) == port_dot_bits(a, b)
+    # numpy beside a CPU tensor follows the tensor
+    assert bits_of(xt.exdot(_t(a), b)) == port_dot_bits(a, b)
+
+
 def test_dot_baseline_is_native():
     from exblas_tpu_torch.baselines import dot_baseline
 

@@ -200,9 +200,17 @@ def test_exsum_cpp_backend_agrees():
         port_sum_bits(x[2::3])
 
 
-def test_exsum_numpy_input_and_impl_rules():
+def test_exsum_numpy_input_and_impl_rules(monkeypatch):
     x = xt.init_fpuniform(100, 10, 0, seed=17)
-    assert bits_of(xt.exsum(x)) == port_sum_bits(x)  # numpy -> CPU tensor
+    # numpy input goes to the CUDA device; without one it raises, and the
+    # CPU runs only when asked for
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xt.exsum(x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xt.exsum_acc(list(x))
+    assert bits_of(xt.exsum(x, device="cpu")) == port_sum_bits(x)
+    assert xt.exsum_bits(list(x), device="cpu").device.type == "cpu"
     assert bits_of(xt.exsum(_t(x), impl="torch")) == port_sum_bits(x)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         xt.exsum(_t(x), impl="cuda")
