@@ -21,6 +21,16 @@ slice of the port:
   for any rung (the exact kernel) and on data with specials (the
   override) against exact host values, the exact kernel and a
   permutation of k, and checks that this path launched both kernels;
+* ExGEMV: holds the row kernel B7, the row analysis B8 and the byte-plane
+  kernel B9 bit for bit against their plain versions on five shapes,
+  twelve distributions, every beta mode, both transposes and rungs (2, 2),
+  (3, 3), (5, 4), (8, 6) and (16, 7) (each case at its narrowest covering
+  rung and at the widest), at the largest shape also with the int32 sums
+  widened every 64 k; drives ``exgemv`` at 8192^2 on the GEMV benchmark data
+  (rung (2, 2): B8 and B9 alone) against B7, exact host values and a
+  permutation of k, on a 600-binade A (B7), on data with specials (the
+  override), with beta general and with trans "T", and checks that this
+  path launched all three kernels;
 
 then times kernels, plain versions and the native float64 controls with
 CUDA events and prints one JSON summary line per the contract below.  Any
@@ -166,15 +176,16 @@ def phase_build():
 
 
 def same_acc(acc_k, acc_p) -> int:
-    """0 if two Superaccs hold the same exact value and counts, else the
-    largest canonical-digit difference (or 1 for a sign/count mismatch)."""
+    """0 if two Superaccs (or batches of them) hold the same exact values
+    and counts, else the largest canonical-digit difference (or 1 for a
+    sign/count mismatch)."""
     from exblas_tpu_torch.core.rounding import canonicalize_digits
 
     dk, nk = canonicalize_digits(acc_k.limbs.cpu())
     dp, np_ = canonicalize_digits(acc_p.limbs.cpu())
     err = int((dk.to(torch.int64) - dp.to(torch.int64)).abs().max())
-    if bool(nk != np_) or not torch.equal(acc_k.special.cpu(),
-                                          acc_p.special.cpu()):
+    if not torch.equal(nk, np_) or not torch.equal(acc_k.special.cpu(),
+                                                   acc_p.special.cpu()):
         err = max(err, 1)
     return err
 
@@ -795,6 +806,435 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ExGEMV
+# ---------------------------------------------------------------------------
+
+GEMV_SHAPES = ((1, 1), (7, 13), (130, 300), (257, 1000), (1000, 257))
+# distribution -> exponent ranges of A and x: the narrowest rung each
+# reaches (A spread = range + 53 bits)
+GEMV_SPANS = {"narrow": (0, 10, 0, 10),           # (2, 2)
+              "mixed": (0, 10, -20, 20),          # (3, 3)
+              "wide": (-45, 45, -35, 35),         # (5, 4)
+              "very_wide": (-98, 99, -60, 60),    # (8, 6)
+              "huge": (-220, 220, -30, 30),       # (16, 7)
+              "beyond": (-300, 300, -10, 10),     # no rung: B7
+              "subnormal": (-545, -535, -545, -535)}
+GEMV_DISTS = tuple(GEMV_SPANS) + ("cancellation", "nan", "inf",
+                                  "inf_times_zero", "both_inf")
+GEMV_RUNGS = ((2, 2), (3, 3), (5, 4), (8, 6), (16, 7))
+N_GEMV = 8192
+
+
+def gemv_case(dist: str, m: int, k: int, seed: int):
+    """(a (m, k), x (k,), y (m,)) of distribution ``dist``."""
+    rs = np.random.RandomState(seed)
+    y = rand_mat(1, m, 0, 10, seed + 2)[0]
+    if dist in GEMV_SPANS:
+        la, ha, lx, hx = GEMV_SPANS[dist]
+        a = rand_mat(m, k, la, ha, seed)
+        x = rand_mat(1, k, lx, hx, seed + 1)[0]
+        if dist == "subnormal":  # products near and below 2^-1074
+            y = np.zeros(m)
+        return a, x, y
+    if dist == "cancellation":  # [v, -v] . [w, w] == 0 exactly: +0.0
+        h = k // 2
+        v = rand_mat(m, h, -30, 30, seed)
+        w = rand_mat(1, h, -30, 30, seed + 1)[0]
+        a = np.concatenate([v, -v, np.zeros((m, k - 2 * h))], axis=1)
+        x = np.concatenate([w, w, np.zeros(k - 2 * h)])
+        return a, x, np.zeros(m)
+    a = rand_mat(m, k, 0, 10, seed)
+    x = rand_mat(1, k, 0, 10, seed + 1)[0]
+    i, kk = rs.randint(0, m), rs.randint(0, k)
+    if dist == "nan":  # a NaN with a payload and the sign set
+        a[i, kk] = np.array([0xFFF0000000000123], np.uint64).view(
+            np.float64)[0]
+    elif dist == "inf":
+        a[i, kk] = np.inf
+        a[rs.randint(0, m), rs.randint(0, k)] = -np.inf
+        y[rs.randint(0, m)] = -np.inf
+    elif dist == "inf_times_zero":
+        a[i, kk] = np.inf
+        x[kk] = 0.0
+    elif dist == "both_inf":
+        a[i, :] = np.inf
+        x[:] = np.where(np.arange(k) % 2 == 0, 1.0, -1.0)
+    else:
+        raise ValueError(dist)
+    return a, x, y
+
+
+def gemv_exact_kernel(ab, zb, yb, beta_bits: int, mode: str):
+    """B7 and the host-side beta term and rounding: the exact route."""
+    from exblas_tpu_torch.ops.exgemv import _apply_beta_rows, round_rows
+    from exblas_tpu_torch.ops.kernels import gemv_kernel as vk
+
+    limbs, special = vk.gemv_rows_acc_cuda(ab, zb)
+    limbs, special = _apply_beta_rows(limbs, special, beta_bits, yb, mode)
+    return round_rows(limbs, special)
+
+
+def rows_err(acc_k, acc_p) -> int:
+    """:func:`same_acc` of two (limbs (m, L), counts (m, 3)) row
+    accumulator pairs."""
+    from exblas_tpu_torch.core.types import DOT_FORMAT, Superacc
+
+    return same_acc(Superacc(*acc_k, fmt=DOT_FORMAT),
+                    Superacc(*acc_p, fmt=DOT_FORMAT))
+
+
+def phase_gemv_kernels(xt) -> dict:
+    """B7, B8 and B9 against their plain versions on the card, and the
+    public entry on the kernels against the public entry on the plain
+    path."""
+    from exblas_tpu_torch.ops.kernels import gemv_kernel as vk
+    from exblas_tpu_torch.ops.kernels import gemv_mxu as vm
+
+    errs = {"gemv_rows_acc_cuda": 0.0, "analyze_gemv_rows_cuda": 0.0,
+            "gemv_bits_mxu_cuda": 0.0}
+    failures = []
+    n_rungs = n_chunked = 0
+    modes = (("one", 1.0), ("general", -0.75), ("zero", 0.0))
+    for si, (m, k) in enumerate(GEMV_SHAPES):
+        for di, dist in enumerate(GEMV_DISTS):
+            seed = SEED + 2000 + 1000 * si + 31 * di
+            a_np, x_np, y_np = gemv_case(dist, m, k, seed)
+            mode, beta = modes[(si + di) % 3]
+            tr = "NT"[(si + di) % 2]
+            ab, zb, yb = cuda_bits(a_np), cuda_bits(x_np), cuda_bits(y_np)
+            bb = s64(beta)
+            line = [f"gemv {m}x{k} {dist} {mode} {tr}:"]
+            # B7: the accumulators as canonical digits, sign and counts
+            e = rows_err(vk.gemv_rows_acc_cuda(ab, zb),
+                         vk.gemv_rows_acc_torch(ab, zb))
+            errs["gemv_rows_acc_cuda"] = max(errs["gemv_rows_acc_cuda"], e)
+            line.append(f"B7 {'==' if e == 0 else '!='}")
+            if e != 0:
+                failures.append(f"B7 {m}x{k} {dist}")
+            ek = gemv_exact_kernel(ab, zb, yb, bb, mode)
+            if dist == "cancellation" and bool((ek != 0).any()):
+                failures.append(f"B7 {m}x{k} cancellation is not +0.0")
+            # B8
+            gk_ = vm.analyze_gemv_rows_cuda(ab)
+            gp_ = vm.analyze_gemv_rows_torch(ab)
+            same = all(torch.equal(u, v) for u, v in zip(gk_, gp_))
+            if not same:
+                errs["analyze_gemv_rows_cuda"] = 1.0
+                failures.append(f"B8 {m}x{k} {dist}")
+            line.append(f"B8 {'==' if same else '!='}")
+            ea, sp_a, _ = gp_
+            f, sp_z, _ = vm.analyze_z(zb)
+            ea0 = torch.where(ea < -9000, 0, ea)
+            f0 = torch.where(f < -9000, 0, f)
+            sp_a, sp_z = int(sp_a), int(sp_z)
+            # the narrowest rung that covers the data (the dispatcher's
+            # choice) and the widest; uncovered rungs are never sent data
+            covered = [(nwa, nwz) for nwa, nwz in GEMV_RUNGS
+                       if sp_a <= 32 * nwa and sp_z <= 32 * nwz]
+            for nwa, nwz in sorted(set(covered[:1] + covered[-1:])):
+                args = (ab, zb, ea0, f0, yb, bb, mode, nwa, nwz)
+                mk = vm.gemv_bits_mxu_cuda(*args)
+                mp = vm.gemv_bits_mxu_torch(*args)
+                e = mismatch_err(mk, mp)
+                errs["gemv_bits_mxu_cuda"] = max(errs["gemv_bits_mxu_cuda"],
+                                                 e)
+                n_rungs += 1
+                line.append(f"B9({nwa},{nwz}) {'==' if e == 0 else '!='}")
+                if e != 0:
+                    failures.append(f"B9 ({nwa},{nwz}) {m}x{k} {dist}")
+                if dist in GEMV_SPANS and not torch.equal(mk, ek):
+                    failures.append(f"B9 != B7 ({nwa},{nwz}) {m}x{k} {dist}")
+                if si == len(GEMV_SHAPES) - 1:
+                    # the int32 sums widened every 64 k, not every 2^16
+                    whole, vm.K_CHUNK = vm.K_CHUNK, vm.KS
+                    try:
+                        mc = vm.gemv_bits_mxu_cuda(*args)
+                    finally:
+                        vm.K_CHUNK = whole
+                    n_chunked += 1
+                    if not torch.equal(mc, mk):
+                        failures.append(f"B9 ({nwa},{nwz}) {m}x{k} {dist} "
+                                        "small k chunk")
+            # the public entry: trans, the ladder and the override
+            a_in = a_np.T.copy() if tr == "T" else a_np
+            args = (tr, 1.0, torch.from_numpy(a_in).cuda(),
+                    torch.from_numpy(x_np).cuda())
+            kw = dict(beta=beta, y=torch.from_numpy(y_np).cuda())
+            pk = xt.exgemv_bits(*args, impl="cuda", **kw)
+            pp = xt.exgemv_bits(*args, impl="torch", **kw)
+            if not torch.equal(pk, pp) or not torch.equal(pk, ek):
+                failures.append(f"public {m}x{k} {dist} {tr}")
+            line.append(f"public {'==' if torch.equal(pk, pp) else '!='}")
+            log(" ".join(line))
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"GEMV kernel != plain version: {failures}")
+    log(f"GEMV kernels vs plain versions: bit-equal (tolerance 0) on "
+        f"{len(GEMV_SHAPES)} shapes x {len(GEMV_DISTS)} distributions, "
+        f"{n_rungs} byte-plane rung runs ({n_chunked} of them again with "
+        f"the int32 sums widened every {vm.KS} k)")
+    return errs
+
+
+def gemv_bench_data(xt, n: int):
+    """The GEMV benchmark configuration's operands
+    (benchmarks/bench_gemv.py:29-32)."""
+    return (xt.init_fpuniform_matrix(n, n, 10, 0, seed=1),
+            xt.init_fpuniform(n, 10, 0, seed=2))
+
+
+def phase_gemv_public(xt, bench) -> tuple[dict, dict]:
+    """The GEMV path at 8192^2: ``exgemv`` on the benchmark data (B8 and
+    B9), on a 600-binade A (B7), on data with NaN/Inf (B9 and the
+    override), with beta general and with trans "T".  Returns the launch
+    counts of this run and, per kernel, the largest difference from its
+    plain version on the path's inputs."""
+    from exblas_tpu_torch.ops.exgemv import plan_gemv
+    from exblas_tpu_torch.ops.kernels import gemv_kernel as vk
+    from exblas_tpu_torch.ops.kernels import gemv_mxu as vm
+
+    n = N_GEMV
+    a_np, x_np = bench
+    a, x = torch.from_numpy(a_np).cuda(), torch.from_numpy(x_np).cuda()
+    ab, zb = a.view(torch.int64), x.view(torch.int64)
+    wa_np = xt.init_fpuniform_matrix(n, n, 600, -300, seed=SEED + 61)
+    wa = torch.from_numpy(wa_np).cuda()
+    sa = a.clone()
+    sa[3, 5] = math.inf
+    sa[7, 9] = float(np.array([0x7FF0000000000ABC], np.uint64).view(
+        np.float64)[0])
+    sa[11, :] = -math.inf
+    sx = x.clone()
+    sx[13] = 0.0           # -inf * 0 in row 11: NaN
+    y = torch.from_numpy(xt.init_fpuniform(n, 10, 0, seed=3)).cuda()
+    beta = -0.75
+    wrappers = (vk.gemv_rows_acc_cuda, vm.analyze_gemv_rows_cuda,
+                vm.gemv_bits_mxu_cuda)
+
+    for w in wrappers:
+        w.launches = 0
+    bits = xt.exgemv_bits("N", 1.0, a, x)
+    torch.cuda.synchronize()
+    first = tuple(w.launches for w in wrappers)
+    if first != (0, 1, 1):
+        raise AssertionError(f"exgemv at {n}^2 did not run B8 and B9 alone: "
+                             f"launches (B7, B8, B9) = {first}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    perm = torch.randperm(n, device="cuda", generator=gen)
+    permuted = xt.exgemv_bits("N", 1.0, a[:, perm], x[perm])
+    wide = xt.exgemv_bits("N", 1.0, wa, x)
+    spec = xt.exgemv_bits("N", 1.0, sa, sx)
+    general = xt.exgemv_bits("N", 1.0, a, x, beta=beta, y=y)
+    trans = xt.exgemv_bits("T", 1.0, a, x, beta=beta, y=y)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    log("GEMV launches on the path:", launches)
+    if launches != {"gemv_rows_acc_cuda": 1, "analyze_gemv_rows_cuda": 6,
+                    "gemv_bits_mxu_cuda": 5}:
+        raise AssertionError(f"unexpected GEMV launches {launches}")
+
+    # the benchmark data: the plain plan's rung, as B7 gives it, as exact
+    # host values give it, and as a permutation of k gives it
+    plan = plan_gemv(ab, zb, None, 0, "zero", True)
+    plain_plan = plan_gemv(ab, zb, None, 0, "zero", False)
+    if plan.rung != plain_plan.rung or plan.rung != (2, 2) or plan.override:
+        raise AssertionError(f"{n}^2: plan {plan.rung} (plain "
+                             f"{plain_plan.rung}), override {plan.override}")
+    if not torch.equal(bits, gemv_exact_kernel(ab, zb, None, 0, "zero")):
+        raise AssertionError(f"{n}^2: B9 != B7")
+    rs = np.random.RandomState(SEED + 62)
+    got = bits.cpu().numpy()
+    for i in rs.randint(0, n, 256):
+        want = exact_dot_host(a_np[i, :], x_np)
+        if int(got[i]) != s64(want):
+            raise AssertionError(f"{n}^2 y[{i}]: {got[i]:#x} != exact "
+                                 f"{want!r}")
+    if not torch.equal(bits, permuted):
+        raise AssertionError(f"{n}^2: not invariant under a permutation of "
+                             "k")
+    log(f"exgemv {n}^2 beta=0 bench data: rung {plan.rung} (the plain plan's"
+        "), B8 and B9 once each, B7 never; bit-equal to B7 (all rows), to "
+        "256 exact host values and under a permutation of k")
+
+    # a 600-binade A: no rung, B7; exact host values
+    wab = wa.view(torch.int64)
+    if plan_gemv(wab, zb, None, 0, "zero", True).rung is not None:
+        raise AssertionError("600-binade data found a rung")
+    got = wide.cpu().numpy()
+    for i in rs.randint(0, n, 64):
+        want = exact_dot_host(wa_np[i, :], x_np)
+        if int(got[i]) != s64(want):
+            raise AssertionError(f"wide y[{i}]: {got[i]:#x} != exact "
+                                 f"{want!r}")
+    # specials: B9 plus the override, equal to B7, which counts them itself
+    sab, szb = sa.view(torch.int64), sx.view(torch.int64)
+    splan = plan_gemv(sab, szb, None, 0, "zero", True)
+    ref = gemv_exact_kernel(sab, szb, None, 0, "zero")
+    if splan.rung is None or not splan.override or not torch.equal(spec, ref):
+        raise AssertionError(f"specials: plan {splan.rung}, override "
+                             f"{splan.override}, equal "
+                             f"{torch.equal(spec, ref)}")
+    n_nan = int((spec == 0x7FF8000000000000).sum())
+    # beta general and trans "T": B7 and the beta term
+    bb, yb = s64(beta), y.view(torch.int64)
+    at = a.t().contiguous().view(torch.int64)
+    for what, got_t, aa in (("beta", general, ab), ("trans T", trans, at)):
+        if not torch.equal(got_t, gemv_exact_kernel(aa, zb, yb, bb,
+                                                    "general")):
+            raise AssertionError(f"{n}^2 {what}: B9 != B7 + beta term")
+    # numpy input runs on the card
+    spec_np = xt.exgemv_bits("N", 1.0, sa.cpu().numpy(), sx.cpu().numpy())
+    if spec_np.device.type != "cuda" or not torch.equal(spec_np, spec):
+        raise AssertionError("exgemv on numpy input did not run on the card")
+    log(f"exgemv {n}^2: a 600-binade A took B7, bit-equal to 64 exact host "
+        f"values; data with NaN/Inf took rung {splan.rung} and the override, "
+        f"bit-equal to B7 ({n_nan} NaN rows, canonical); beta={beta} and "
+        "trans T bit-equal to B7 with the beta term; numpy input ran on the "
+        "card")
+
+    # each kernel against its plain version on the path's inputs
+    t0 = time.perf_counter()
+    ea_k = vm.analyze_gemv_rows_cuda(ab)
+    ea_p = vm.analyze_gemv_rows_torch(ab)
+    errs = {
+        "analyze_gemv_rows_cuda": 0.0 if all(
+            torch.equal(u, v) for u, v in zip(ea_k, ea_p)) else 1.0,
+        "gemv_bits_mxu_cuda": mismatch_err(bits, vm.gemv_bits_mxu_torch(
+            ab, zb, plan.ea0, plan.f0, None, 0, "zero", *plan.rung)),
+        "gemv_rows_acc_cuda": rows_err(vk.gemv_rows_acc_cuda(wab, zb),
+                                       vk.gemv_rows_acc_torch(wab, zb))}
+    if any(errs.values()):
+        raise AssertionError(f"GEMV path != plain versions: {errs}")
+    log(f"GEMV path bit-equal to the plain versions: analyze_gemv_rows_torch "
+        f"and gemv_bits_mxu_torch on the bench data, gemv_rows_acc_torch on "
+        f"the 600-binade A ({time.perf_counter() - t0:.1f} s)")
+    return launches, errs
+
+
+def phase_gemv_timing(xt, smi: str, bench) -> dict:
+    """8192^2, the benchmark data: B8, B9 (and its z-digit, class and
+    rounding launches apart), the plan, the public entry (beta zero and
+    general, trans "T" and its copy), B7 (also on the 600-binade A) and
+    the float64 controls; the plain versions at (257, 1000)."""
+    from exblas_tpu_torch.ops.exgemv import plan_gemv
+    from exblas_tpu_torch.ops.kernels import _build
+    from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
+    from exblas_tpu_torch.ops.kernels import gemv_kernel as vk
+    from exblas_tpu_torch.ops.kernels import gemv_mxu as vm
+
+    n = N_GEMV
+    a, x = (torch.from_numpy(v).cuda() for v in bench)
+    y = torch.from_numpy(xt.init_fpuniform(n, 10, 0, seed=3)).cuda()
+    ab, zb, yb = (v.view(torch.int64) for v in (a, x, y))
+    wa = torch.from_numpy(xt.init_fpuniform_matrix(
+        n, n, 600, -300, seed=SEED + 61)).cuda().view(torch.int64)
+    beta, bb = -0.75, s64(-0.75)
+    plan = plan_gemv(ab, zb, None, 0, "zero", True)
+    nwa, nwz = plan.rung
+    kw = dict(ea=plan.ea0, f=plan.f0)
+
+    def b9(y_bits=None, beta_bits=0, mode="zero"):
+        return vm.gemv_bits_mxu_cuda(ab, zb, kw["ea"], kw["f"], y_bits,
+                                     beta_bits, mode, nwa, nwz)
+
+    t = {}
+    t["b8"] = time_ms(lambda: vm.analyze_gemv_rows_cuda(ab))
+    t["b9"] = time_ms(b9)
+    t["b9_beta"] = time_ms(lambda: b9(yb, bb, "general"), reps=5, inner=2)
+    # B9's parts, as its wrapper launches them
+    _, _, ns, nz, r0, _ = vm._rung_params(nwa, nwz)
+    k_pad = n
+    f64 = plan.f0.to(torch.int64).reshape(1)
+    t["zdig"] = time_ms(lambda: gm._digits_cuda(zb.reshape(1, n), f64, 1,
+                                                k_pad, 4 * nwz))
+    zd = gm._digits_cuda(zb.reshape(1, n), f64, 1, k_pad, 4 * nwz)
+    ea32 = plan.ea0.to(torch.int32).contiguous()
+    f32 = plan.f0.to(torch.int32).reshape(1)
+    cls = torch.zeros((n, ns + nz), dtype=torch.int64, device="cuda")
+    out = torch.empty(n, dtype=torch.int64, device="cuda")
+    lib, stream = _build.library(), _build.stream_of(a.device)
+    t["cls"] = time_ms(lambda: _build.check(lib.gemv_mxu_classes_cuda(
+        _build.ptr(ab), _build.ptr(ea32), _build.ptr(zd), n, n, k_pad, nwa,
+        nwz, vm.K_CHUNK, _build.ptr(cls), stream), "gemv_mxu_classes_cuda"))
+    t["rnd"] = time_ms(lambda: _build.check(lib.gemv_mxu_round_cuda(
+        _build.ptr(cls), ns + nz, _build.ptr(ea32), _build.ptr(f32), None, 0,
+        0, n, vm.rel_limbs_count(r0), r0, _build.ptr(out), stream),
+        "gemv_mxu_round_cuda"))
+    t["plan"] = time_ms(lambda: plan_gemv(ab, zb, None, 0, "zero", True),
+                        reps=5, inner=2)
+    t["z"] = time_ms(lambda: vm.analyze_z(zb))
+    t["pub"] = time_ms(lambda: xt.exgemv_bits("N", 1.0, a, x), reps=5,
+                       inner=2)
+    t["pub_beta"] = time_ms(lambda: xt.exgemv_bits("N", 1.0, a, x, beta=beta,
+                                                   y=y), reps=5, inner=2)
+    t["pub_t"] = time_ms(lambda: xt.exgemv_bits("T", 1.0, a, x, beta=beta,
+                                                y=y), reps=5, inner=2)
+    t["t_copy"] = time_ms(lambda: a.t().contiguous())
+    t["b7"] = time_ms(lambda: vk.gemv_rows_acc_cuda(ab, zb), reps=5, inner=2)
+    t["b7_wide"] = time_ms(lambda: vk.gemv_rows_acc_cuda(wa, zb), reps=3,
+                           inner=1)
+    t["mv"] = time_ms(lambda: torch.mv(a, x))
+    t["addmv"] = time_ms(lambda: torch.addmv(y, a, x, beta=beta))
+    del cls, out, wa
+    log(f"time {n}^2 bench data [{smi}]:")
+    log(f"  public xt.exgemv_bits beta=0: {t['pub']:.4f} ms; beta={beta}: "
+        f"{t['pub_beta']:.4f} ms; trans T, beta={beta}: {t['pub_t']:.4f} ms "
+        f"(its copy a.t().contiguous() {t['t_copy']:.4f} ms)")
+    log(f"  plan (B8, z analysis, one host sync): {t['plan']:.4f} ms; B8 "
+        f"analyze_gemv_rows_cuda {t['b8']:.4f} ms; analyze_z "
+        f"{t['z']:.4f} ms")
+    log(f"  B9 gemv_bits_mxu_cuda rung {plan.rung} beta=0: {t['b9']:.4f} ms "
+        f"(z digits {t['zdig']:.4f} ms, class kernel {t['cls']:.4f} ms, "
+        f"rounding kernel {t['rnd']:.4f} ms); beta={beta}: "
+        f"{t['b9_beta']:.4f} ms")
+    log(f"  B7 gemv_rows_acc_cuda: {t['b7']:.4f} ms on the bench data, "
+        f"{t['b7_wide']:.4f} ms on the 600-binade A")
+    log(f"  float64 controls: torch.mv {t['mv']:.4f} ms, torch.addmv "
+        f"{t['addmv']:.4f} ms")
+
+    # the plain versions, at a shape where they finish in seconds
+    pm, pk = 257, 1000
+    pa_np, px_np, _ = gemv_case("narrow", pm, pk, SEED)
+    pa, px = cuda_bits(pa_np), cuda_bits(px_np)
+    pplan = plan_gemv(pa, px, None, 0, "zero", False)
+    t_p7 = time_ms(lambda: vk.gemv_rows_acc_torch(pa, px), reps=3, inner=1)
+    t_p8 = time_ms(lambda: vm.analyze_gemv_rows_torch(pa), reps=3, inner=1)
+    t_p9 = time_ms(lambda: vm.gemv_bits_mxu_torch(
+        pa, px, pplan.ea0, pplan.f0, None, 0, "zero", *pplan.rung), reps=3,
+        inner=1)
+    log(f"time {pm}x{pk} plain versions [{smi}]: gemv_rows_acc_torch "
+        f"{t_p7:.3f} ms, analyze_gemv_rows_torch {t_p8:.3f} ms, "
+        f"gemv_bits_mxu_torch {pplan.rung} {t_p9:.3f} ms")
+
+    # bounds: A's bytes (z, y and the output are 0.2% of them); the int8
+    # operations of B9 and the integer operations of B7's products are far
+    # below
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_max_hz()
+    bytes_ = 8.0 * n * n + 16.0 * n
+    by_bytes = bytes_ / HBM_BYTES * 1e3
+    b9_ops = 2.0 * (ns + 1) * nz * n * n / INT8_OPS * 1e3
+    b7_ops = B5_INT_OPS * n * n / (INT32_LANES * sms * clock) * 1e3
+    log(f"bounds {n}^2: {by_bytes:.4f} ms by A's bytes; B9 rung {plan.rung} "
+        f"{b9_ops:.4f} ms by int8 operations; B7 {b7_ops:.4f} ms by "
+        f"{B5_INT_OPS} int32 operations per product")
+    shape, plain_shape = [n, n], [pm, pk]
+    out_ = {}
+    for name, ms, plain_ms, ops in (
+            ("gemv_rows_acc_cuda", t["b7"], t_p7, b7_ops),
+            ("analyze_gemv_rows_cuda", t["b8"], t_p8, 0.0),
+            ("gemv_bits_mxu_cuda", t["b9"], t_p9, b9_ops)):
+        out_[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(by_bytes, ops),
+            bound_by="operations" if ops > by_bytes else "bytes",
+            library_ms=None if name == "analyze_gemv_rows_cuda" else t["mv"],
+            shape=shape, plain_shape=plain_shape,
+            library=None if name == "analyze_gemv_rows_cuda" else "torch.mv")
+    return out_
+
+
+# ---------------------------------------------------------------------------
 # Summary
 # ---------------------------------------------------------------------------
 
@@ -824,6 +1264,14 @@ GEMM_KERNELS = (
     ("gemm_bits_mxu_cuda", "exblas_tpu_torch/ops/kernels/csrc/gemm_mxu.cu",
      "exblas_tpu/ops/kernels/gemm_mxu.py:509"),
 )
+GEMV_KERNELS = (
+    ("gemv_rows_acc_cuda", "exblas_tpu_torch/ops/kernels/csrc/gemv_kernel.cu",
+     "exblas_tpu/ops/kernels/gemv_kernel.py:115"),
+    ("analyze_gemv_rows_cuda", "exblas_tpu_torch/ops/kernels/csrc/gemv_mxu.cu",
+     "exblas_tpu/ops/kernels/gemv_mxu.py:172"),
+    ("gemv_bits_mxu_cuda", "exblas_tpu_torch/ops/kernels/csrc/gemv_mxu.cu",
+     "exblas_tpu/ops/kernels/gemv_mxu.py:648"),
+)
 
 
 def main() -> None:
@@ -840,8 +1288,15 @@ def main() -> None:
     launches.update(gemm_launches)
     for name, e in gemm_errs.items():
         errs[name] = max(errs[name], e)
+    errs.update(phase_gemv_kernels(xt))
+    gemv_bench = gemv_bench_data(xt, N_GEMV)
+    gemv_launches, gemv_errs = phase_gemv_public(xt, gemv_bench)
+    launches.update(gemv_launches)
+    for name, e in gemv_errs.items():
+        errs[name] = max(errs[name], e)
     times = phase_timing(xt, smi)
     gemm_times = phase_gemm_timing(xt, smi, bench)
+    gemv_times = phase_gemv_timing(xt, smi, gemv_bench)
     summary = []
     for name, src, rep, bpe, lib in KERNELS:
         t_k, t_p, t_n = times[name]
@@ -856,6 +1311,11 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": errs[name],
             **gemm_times[name], "library": "torch.addmm"})
+    for name, src, rep in GEMV_KERNELS:
+        summary.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name], "max_abs_err": errs[name],
+            **gemv_times[name]})
     log(f"chip_smoke seconds {time.perf_counter() - t0:.1f}")
     log(smi)
     log(json.dumps({"kernels": summary}))

@@ -2,9 +2,10 @@
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of ``exblas_tpu`` (JAX on a TPU), held bit for bit against it.
-``exsum``, ``exdot`` and ``exgemm`` return the correctly rounded float64
-of the exact result (per element for ``exgemm``), so their bits cannot
-depend on element order, launch geometry or partitioning.  CPU tensors
+``exsum``, ``exdot``, ``exgemv`` and ``exgemm`` return the correctly
+rounded float64 of the exact result (per element for ``exgemv`` and
+``exgemm``), so their bits cannot depend on element order, launch
+geometry or partitioning.  CPU tensors
 take the plain PyTorch integer path; CUDA tensors take the kernels in
 ``ops/kernels``, built with ``nvcc`` at first use.  Numpy input goes to
 the current CUDA device unless the call names ``device``.
@@ -13,8 +14,8 @@ Importing the package configures nothing global and imports no JAX.
 """
 
 from . import core
-from .ops import (exdot, exdot_acc, exdot_bits, exgemm, exgemm_bits, exsum,
-                  exsum_acc, exsum_bits)
+from .ops import (exdot, exdot_acc, exdot_bits, exgemm, exgemm_bits, exgemv,
+                  exgemv_bits, exsum, exsum_acc, exsum_bits)
 from .utils.generators import (
     init_fpuniform,
     init_fpuniform_matrix,
@@ -36,6 +37,8 @@ __all__ = [
     "exdot",
     "exdot_acc",
     "exdot_bits",
+    "exgemv",
+    "exgemv_bits",
     "exgemm",
     "exgemm_bits",
     "init_fpuniform",

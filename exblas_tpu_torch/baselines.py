@@ -1,11 +1,11 @@
 """Non-reproducible float64 controls.
 
 Counterpart of ``exblas_tpu/baselines.py``: native ``torch.sum``,
-``torch.dot`` and ``c + a @ b`` in float64 on the tensors' device (numpy
-input runs on the CPU).  On a GPU they reduce in
-floating point in an order of the library's choosing, so they are neither
-reproducible nor correctly rounded -- they are the speed controls the exact
-routines are timed against.
+``torch.dot``, ``alpha * (op(A) @ x) + beta * y`` and ``c + a @ b`` in
+float64 on the tensors' device (numpy input runs on the CPU).  On a GPU
+they reduce in floating point in an order of the library's choosing, so
+they are neither reproducible nor correctly rounded -- they are the speed
+controls the exact routines are timed against.
 """
 
 from __future__ import annotations
@@ -26,6 +26,16 @@ def sum_baseline(x) -> float:
 
 def dot_baseline(a, b) -> float:
     return float(torch.dot(_f64(a).reshape(-1), _f64(b).reshape(-1)).item())
+
+
+def gemv_baseline(trans: str, alpha: float, a, x, beta: float = 0.0,
+                  y=None) -> torch.Tensor:
+    """float64 ``alpha * (op(A) @ x) + beta * y`` on the operands' device
+    (no y term when beta == 0 or y is None)."""
+    a = _f64(a)
+    op = a.t() if trans.upper() == "T" else a
+    r = alpha * (op @ _f64(x))
+    return r if (y is None or beta == 0.0) else r + beta * _f64(y)
 
 
 def gemm_baseline(a, b, c=None) -> torch.Tensor:

@@ -1,6 +1,7 @@
 from .exdot import exdot, exdot_acc, exdot_bits
 from .exgemm import exgemm, exgemm_bits
+from .exgemv import exgemv, exgemv_bits
 from .exsum import exsum, exsum_acc, exsum_bits
 
 __all__ = ["exsum", "exsum_acc", "exsum_bits", "exdot", "exdot_acc",
-           "exdot_bits", "exgemm", "exgemm_bits"]
+           "exdot_bits", "exgemv", "exgemv_bits", "exgemm", "exgemm_bits"]

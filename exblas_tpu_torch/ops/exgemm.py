@@ -36,14 +36,12 @@ from ..core import deposit as dep
 from ..core.f64ops import f64_mul
 from ..core.ieee import FRAC_MASK, decode_fields, f64_bits
 from ..core.rounding import NINF_BITS, PINF_BITS, QNAN_BITS
-from .exgemv import _apply_ld, _scalar_bits
+from .exgemv import _apply_ld, _scalar_bits, gemm_acc
 from .exsum import _validate_fpe, as_f64, resolve_impl, target_device
 from .kernels import gemm_kernel, gemm_mxu
-from .kernels.gemm_kernel import apply_beta_gemm, gemm_acc
 from .kernels.gemm_mxu import MXU_BETA_HEAD, analyze_gemm_operands
 
-__all__ = ["exgemm", "exgemm_bits", "gemm_acc", "apply_beta_gemm",
-           "plan_gemm"]
+__all__ = ["exgemm", "exgemm_bits", "gemm_acc", "plan_gemm"]
 
 # (sa, sb) slice-count rungs, ordered by cost (sa+1)*(sb+1): the cheapest
 # pair with spread_a <= 8*sa, spread_b <= 8*sb and beta*C coverage wins.

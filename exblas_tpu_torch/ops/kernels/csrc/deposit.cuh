@@ -43,6 +43,29 @@ inline cudaError_t deposit_grid(long long n, int* grid) {
   return cudaSuccess;
 }
 
+// How a row kernel cuts its work: `units` row units (rows or row tiles) of
+// k elements, k processed in steps of `step`.  Small `units` with large k
+// split k into *splits spans of *span elements (a multiple of step) so that
+// the grid fills every SM (8 resident blocks each); every span but the
+// last is whole, and the grid is units * *splits blocks.
+inline cudaError_t row_splits(long long units, long long k, long long step,
+                              long long* splits, long long* span) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const long long steps = k > 0 ? (k + step - 1) / step : 1;
+  long long s = (static_cast<long long>(sms) * 8 + units - 1) / units;
+  if (s > steps) s = steps;
+  if (s < 1) s = 1;
+  *span = (steps + s - 1) / s * step;
+  *splits = k > 0 ? (k + *span - 1) / *span : 1;
+  if (units * *splits > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
 // DOT_FORMAT: 216 limbs of 20 bits, bit 0 at 2^-2148; a 106-bit product
 // shifted by r < 20 spans 7 digits.
 constexpr int kDotLimbs = 216;

@@ -45,27 +45,18 @@
 #include <cstdint>
 
 #include "deposit.cuh"
+#include "mxu.cuh"
 #include "round.cuh"
 
 namespace {
+
+using exblas::ld32;
+using exblas::mma_s8;
 
 constexpr int kG = 17;        // classes per pass, held in registers
 constexpr int kTile = 32;     // block tile: 32 x 32 outputs, 4 warps
 constexpr int kThreads = 128;
 constexpr int kMaxRel = 48;   // limbs of the rounding accumulator
-
-__device__ __forceinline__ unsigned ld32(const int8_t* p) {
-  return __ldg(reinterpret_cast<const unsigned*>(p));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Class sums of one 32 x 32 output tile for classes [c0, c0 + kG):
 // cls[c][i][j] (int64, (n_cls, rows, n_pad)) over all k.
@@ -275,14 +266,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace r88
 
-// Bits [s, s + 8) of a 53-bit significand; zero outside [-7, 60].
-__device__ __forceinline__ int extract8(unsigned long long mant, int s) {
-  if (s < 0) return s > -8 ? static_cast<int>((mant << -s) & 0xFFULL) : 0;
-  return s < 61 ? static_cast<int>((mant >> s) & 0xFFULL) : 0;
-}
-
 // Balanced signed base-256 digits of x (rows, k), row-major int64 bits,
-// anchored per row (the port of make_digits): digit u of element (r, c)
+// anchored per row (mxu.cuh, the port of make_digits): digit u of
+// element (r, c)
 // goes to out[u][r][c] of (n_slices + 1, rows_pad, k_pad) int8, zeros
 // beyond (rows, k).  One thread per output position, c fastest.
 __global__ void __launch_bounds__(256)
@@ -302,20 +288,9 @@ __global__ void __launch_bounds__(256)
       bits = x[r * k + c];
       anchor = static_cast<int>(anchors[r]);
     }
-    const exblas::Decoded d = exblas::decode(bits);
-    const bool valid = d.expf != 0x7FF && !d.zero;
-    const int e_lsb = (d.expf > 1 ? d.expf : 1) - 1075;
-    const int sgn = bits < 0 ? -1 : 1;
-    int carry = 0;
-    for (int s = n_slices - 1; s >= 0; --s) {  // least significant first
-      const int cut = anchor + 1 - 8 * (s + 1);
-      const int byte = valid ? extract8(d.mant, cut - e_lsb) : 0;
-      const int t = sgn * byte + carry;          // in [-256, 256]
-      const int digit = ((t + 128) & 255) - 128;  // in [-128, 127]
-      carry = (t - digit) >> 8;                   // in {-1, 0, 1}
-      out[(s + 1) * plane + e] = static_cast<int8_t>(digit);
-    }
-    out[e] = static_cast<int8_t>(carry);
+    exblas::balanced_digits(bits, anchor, n_slices, [&](int u, int digit) {
+      out[u * plane + e] = static_cast<int8_t>(digit);
+    });
   }
 }
 

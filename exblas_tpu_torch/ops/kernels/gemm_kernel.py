@@ -3,7 +3,8 @@ plain PyTorch version.
 
 Counterparts of ``exblas_tpu/ops/kernels/gemm_kernel.py``
 (``gemm_bits_pallas``) and of the plain accumulators of
-``exblas_tpu/ops/exgemm.py`` (``gemm_acc_xla``, ``apply_beta_gemm``):
+``exblas_tpu/ops/exgemm.py`` (``gemm_acc_xla``, ``apply_beta_gemm``, whose
+job the row helper ``_apply_beta_rows`` of ``ops/exgemv.py`` does here):
 
 * :func:`gemm_bits_cuda` -- for each (i, j) the exact sum of the 106-bit
   products ``z[i,k] * b[k,j]`` plus the exact ``beta * c[i,j]``, every
@@ -11,8 +12,8 @@ Counterparts of ``exblas_tpu/ops/kernels/gemm_kernel.py``
   ``core/deposit.py``.  Any data.  It is the fallback of the slice kernel
   (``gemm_mxu.py``) and the only route beyond its coverage.
 * :func:`gemm_bits_torch` -- the plain version: the O(m k n) deposit of
-  :func:`gemm_acc`, the beta term of :func:`apply_beta_gemm`, then
-  ``round_rows``.
+  ``gemm_acc``, the beta term of ``_apply_beta_rows``, then
+  ``round_rows`` (the row helpers of ``ops/exgemv.py``).
 
 Operands are int64 binary64 bit patterns (``z = fl(alpha * A)`` already
 applied).  ``beta_mode`` is ``"zero"`` (no C term; ``c`` unused), ``"one"``
@@ -25,21 +26,16 @@ from __future__ import annotations
 
 import torch
 
-from ...core import deposit as dep
-from ...core.accumulator import MAX_DOT_TERMS, MAX_TERMS, check_n_terms
-from ...core.types import DOT_FORMAT, L_DOT, N_SPECIAL
-from ..exgemv import deposit_terms_rows, round_rows
+from ...core.accumulator import MAX_TERMS, check_n_terms
+from ..exgemv import _apply_beta_rows, gemm_acc, round_rows
 from . import _build
 from ._build import ptr, stream_of
 
-__all__ = ["gemm_bits_cuda", "gemm_bits_torch", "gemm_acc",
-           "apply_beta_gemm", "BETA_MODES"]
+__all__ = ["gemm_bits_cuda", "gemm_bits_torch", "BETA_MODES"]
 
 # beta_mode -> the kernels' integer code
 BETA_MODES = {"zero": 0, "one": 1, "general": 2}
 ONE_BITS = 0x3FF0000000000000  # 1.0
-# Products the plain deposit decomposes at once: bounds its temporaries.
-PRODUCTS_PER_PASS = 1 << 21
 
 
 def check_cuda_bits(x: torch.Tensor, name: str, shape) -> None:
@@ -92,48 +88,11 @@ def gemm_bits_cuda(z_bits, b_bits, c_bits, beta_bits: int,
 gemm_bits_cuda.launches = 0
 
 
-def gemm_acc(z_bits, b_bits):
-    """Exact DOT_FORMAT accumulators of z @ b: int64 limbs (m*n, L) and
-    special counts (m*n, 3), by the plain product deposit, about
-    ``PRODUCTS_PER_PASS`` products at a time."""
-    m, k = z_bits.shape
-    n = b_bits.shape[1]
-    check_n_terms(k, MAX_DOT_TERMS)
-    dev = z_bits.device
-    limbs = torch.zeros(m * n * L_DOT, dtype=torch.int64, device=dev)
-    special = torch.zeros((m * n, N_SPECIAL), dtype=torch.int64, device=dev)
-    seg = torch.arange(m * n, device=dev).reshape(m, 1, n) * L_DOT
-    kc = max(1, PRODUCTS_PER_PASS // max(1, m * n))
-    for k0 in range(0, k, kc):
-        t = dep.product_terms(z_bits[:, k0:k0 + kc, None],
-                              b_bits[None, k0:k0 + kc, :],
-                              DOT_FORMAT.offset_bits)
-        dep.segment_deposit_products(limbs, t, seg)
-        special += torch.stack([t[s].sum(dim=1).reshape(-1)
-                                for s in ("nan", "pinf", "ninf")], dim=-1)
-    return limbs.view(m * n, L_DOT), special
-
-
-def apply_beta_gemm(limbs, special, beta_bits: int, c_bits, beta_mode: str):
-    """Deposit the exact beta*C term into the (m*n, L) accumulators, in
-    place: C itself for beta == 1, the exact 106-bit product otherwise."""
-    if beta_mode == "one":
-        return deposit_terms_rows(limbs, special, c_bits)
-    if beta_mode == "general":
-        c = c_bits.reshape(-1)
-        t = dep.product_terms(torch.full_like(c, beta_bits), c,
-                              DOT_FORMAT.offset_bits)
-        seg = torch.arange(c.numel(), device=c.device) * L_DOT
-        dep.segment_deposit_products(limbs.view(-1), t, seg)
-        special += torch.stack([t["nan"], t["pinf"], t["ninf"]], dim=-1)
-    return limbs, special
-
-
 def gemm_bits_torch(z_bits, b_bits, c_bits, beta_bits: int,
                     beta_mode: str) -> torch.Tensor:
     """Plain version of :func:`gemm_bits_cuda` on any device."""
     limbs, special = gemm_acc(z_bits, b_bits)
-    limbs, special = apply_beta_gemm(limbs, special, beta_bits, c_bits,
-                                     beta_mode)
+    limbs, special = _apply_beta_rows(limbs, special, beta_bits, c_bits,
+                                      beta_mode)
     return round_rows(limbs, special).reshape(z_bits.shape[0],
                                               b_bits.shape[1])

@@ -1,0 +1,58 @@
+"""ExGEMV exact row kernel B7 (CUDA, ``csrc/gemv_kernel.cu``) and its plain
+PyTorch version.
+
+Counterpart of ``exblas_tpu/ops/kernels/gemv_kernel.py``
+(``gemv_rows_acc_pallas``): for each row i of A the exact sum of the
+106-bit products ``a[i,k] * z[k]`` in a DOT_FORMAT superaccumulator, with
+NaN/+Inf/-Inf counted as in ``core/deposit.py``.  Any data.  The output is
+the JAX layout -- int64 limbs (m, 216) and int64 counts (m, 3) -- so the
+beta term and the rounding of ``ops/exgemv.py`` (``_apply_beta_rows``,
+``round_rows``) take it as it is; limbs are redundant, so compare them as
+canonical digits.
+
+:func:`gemv_rows_acc_cuda` takes contiguous CUDA int64 bit tensors only,
+never falls back, and counts its launches in ``launches``;
+:func:`gemv_rows_acc_torch` is the plain version (``dot_rows_acc``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core.accumulator import MAX_TERMS, check_n_terms
+from ...core.types import L_DOT, N_SPECIAL
+from ..exgemv import dot_rows_acc
+from . import _build
+from ._build import ptr, stream_of
+from .gemm_kernel import check_cuda_bits
+
+__all__ = ["gemv_rows_acc_cuda", "gemv_rows_acc_torch"]
+
+
+def gemv_rows_acc_cuda(a_bits, z_bits):
+    """Exact per-row accumulators of CUDA bit tensors a (m, k) and z (k,)
+    -> (limbs int64 (m, 216), special int64 (m, 3)) on the device."""
+    m, k = a_bits.shape
+    check_cuda_bits(a_bits, "gemv_rows_acc_cuda", (m, k))
+    check_cuda_bits(z_bits, "gemv_rows_acc_cuda", (k,))
+    check_n_terms(k, MAX_TERMS)
+    dev = a_bits.device
+    limbs = torch.zeros((m, L_DOT), dtype=torch.int64, device=dev)
+    special = torch.zeros((m, N_SPECIAL), dtype=torch.int64, device=dev)
+    if m * k == 0:
+        return limbs, special
+    with torch.cuda.device(dev):
+        err = _build.library().gemv_rows_acc_cuda(
+            ptr(a_bits), ptr(z_bits), m, k, ptr(limbs), ptr(special),
+            stream_of(dev))
+    _build.check(err, "gemv_rows_acc_cuda")
+    gemv_rows_acc_cuda.launches += 1
+    return limbs, special
+
+
+gemv_rows_acc_cuda.launches = 0
+
+
+def gemv_rows_acc_torch(a_bits, z_bits):
+    """Plain version of :func:`gemv_rows_acc_cuda` on any device."""
+    return dot_rows_acc(a_bits, z_bits)
