@@ -31,6 +31,14 @@ slice of the port:
   permutation of k, on a 600-binade A (B7), on data with specials (the
   override), with beta general and with trans "T", and checks that this
   path launched all three kernels;
+* ExTRSV: holds the blocked solve B10, at block heights 64 and 128,
+  bit for bit against its plain version at n from 1 to 1000 on eight
+  distributions (specials, a zero diagonal, NaN in the triangle that is
+  never read, subnormal x, overflow), unit and non-unit; drives ``extrsv``
+  at n = 8192 on the TRSV benchmark's data (which overflows past row 1593)
+  and on its bounded data (against exact host rows, the flipped upper and
+  the transposed solves, and the plain version at n = 2048), and checks
+  that this path launched B10;
 
 then times kernels, plain versions and the native float64 controls with
 CUDA events and prints one JSON summary line per the contract below.  Any
@@ -1235,6 +1243,309 @@ def phase_gemv_timing(xt, smi: str, bench) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ExTRSV
+# ---------------------------------------------------------------------------
+
+TRSV_SIZES = (1, 2, 127, 128, 129, 300, 1000)
+TRSV_DISTS = ("fpuniform4", "fpuniform600", "lognormal", "subnormal",
+              "zero_diag", "specials_b", "nan_ignored", "overflow")
+# The distributions also run at n = 300 and 1000: each sequential step of
+# the plain version takes milliseconds on the card.
+TRSV_LARGE = {300: ("fpuniform600", "zero_diag", "overflow"),
+              1000: ("overflow",)}
+# These act through the diagonal, so they run non-unit only.
+TRSV_NON_UNIT = ("subnormal", "zero_diag", "overflow")
+TRSV_BLOCKS = (64, 128)
+N_TRSV = 8192
+N_TRSV_PLAIN = 2048
+QNAN_PAYLOAD = float(np.array([0xFFF0000000000123], np.uint64).view(
+    np.float64)[0])
+
+
+def trsv_case(xt, dist: str, n: int, seed: int, unit: bool):
+    """(a, b) of distribution ``dist``: T in a's lower triangle."""
+    rs = np.random.RandomState(seed)
+    if dist == "fpuniform600":
+        a = xt.init_fpuniform_tr_matrix("L", "N", n, 600, 300, seed=seed)
+        b = xt.init_fpuniform(n, 600, 300, seed=seed + 1)
+    elif dist == "lognormal":
+        a = xt.init_lognormal_tr_matrix("L", "N", n, 0.0, 2.0, seed=seed)
+        b = xt.init_lognormal(n, 0.0, 2.0, seed=seed + 1)
+    else:  # the TRSV benchmark's distribution (bench_trsv.py:66,73)
+        a = xt.init_fpuniform_tr_matrix("L", "N", n, 4, 0, seed=seed)
+        b = xt.init_fpuniform(n, 4, 0, seed=seed + 1)
+    if dist == "subnormal":      # x_i ~ 2^-1050 and below
+        a[np.diag_indices(n)] *= 2.0 ** 700
+        b = xt.init_fpuniform(n, 8, -350, seed=seed + 1)
+    elif dist == "zero_diag":    # x_k = +-Inf, NaN further down
+        k = n // 3
+        a[k, k] = 0.0
+        a[k + 1::2, k] = 0.0     # strictly-lower zeros times Inf: NaN
+    elif dist == "specials_b":
+        b[rs.randint(0, n)] = np.inf
+        b[rs.randint(0, n)] = -np.inf
+        b[rs.randint(0, n)] = QNAN_PAYLOAD
+    elif dist == "nan_ignored":  # never read: the upper part (and a unit
+        a[np.triu_indices(n, 0 if unit else 1)] = QNAN_PAYLOAD  # diagonal)
+    elif dist == "overflow":     # the benchmark data's overflow, sooner
+        a[np.diag_indices(n)] *= 2.0 ** -6
+    elif dist not in ("fpuniform4", "fpuniform600", "lognormal"):
+        raise ValueError(dist)
+    return a, b
+
+
+def phase_trsv_kernels(xt) -> dict:
+    """B10 at both block heights against its plain version.  The plain
+    version runs on the host's CPU from the same bits: its n steps are
+    sequential, each a few hundred small PyTorch operations, which cost
+    about five times less on the CPU than as launches on the card."""
+    from exblas_tpu_torch.ops.kernels import trsv_kernel as tk
+
+    err = 0.0
+    failures = []
+    n_cases = 0
+    t0 = time.perf_counter()
+    for si, n in enumerate(TRSV_SIZES):
+        for di, dist in enumerate(TRSV_LARGE.get(n, TRSV_DISTS)):
+            unit = (si + di) % 2 == 1 and dist not in TRSV_NON_UNIT
+            seed = SEED + 3000 + 1000 * si + 31 * di
+            a_np, b_np = trsv_case(xt, dist, n, seed, unit)
+            tb, bb = cuda_bits(a_np), cuda_bits(b_np)
+            xp = tk.trsv_lower_x_torch(tb.cpu(), bb.cpu(), unit)
+            line = [f"trsv n={n} {dist} {'unit' if unit else 'non-unit'}:"]
+            for block in TRSV_BLOCKS:
+                xk = tk.trsv_lower_x_cuda(tb, bb, unit, block=block).cpu()
+                e = mismatch_err(xk, xp)
+                err = max(err, e)
+                line.append(f"B10({block}) {'==' if e == 0 else '!='}")
+                if e != 0:
+                    failures.append(f"B10({block}) n={n} {dist}")
+            if dist == "nan_ignored":  # the same bits as without the NaNs
+                clean = np.tril(a_np, -1 if unit else 0)
+                same = torch.equal(tk.trsv_lower_x_cuda(
+                    cuda_bits(clean), bb, unit).cpu(), xp)
+                line.append(f"masked {'==' if same else '!='}")
+                if not same:
+                    failures.append(f"B10 n={n} reads the ignored triangle")
+            xf = xp.view(torch.float64)
+            n_nan = int(torch.isnan(xf).sum())
+            if n_nan and not bool((xp[torch.isnan(xf)]
+                                   == 0x7FF8000000000000).all()):
+                failures.append(f"n={n} {dist}: a NaN is not canonical")
+            line.append(f"({int(torch.isfinite(xf).sum())} finite, {n_nan} "
+                        "NaN)")
+            n_cases += 1
+            log(" ".join(line))
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"TRSV kernel != plain version: {failures}")
+    log(f"TRSV kernel vs plain version (on the CPU): bit-equal (tolerance "
+        f"0) on {n_cases} cases, block heights {TRSV_BLOCKS} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"trsv_lower_x_cuda": err}
+
+
+def trsv_bench_data(xt, n: int):
+    """(T of bench_trsv.py:73, the bounded T of bench_trsv.py:16-53, b).
+
+    The first overflows: its float64 solution is finite up to row 1593
+    only.  The second keeps x bounded -- diagonal in [1, 2) with random
+    mantissas, strict lower part 2^-60 * [1, 2), upper part +0.0 -- and is
+    made here with numpy from SEED (the JAX benchmark drew it with
+    jax.random).  b is the benchmark's for both."""
+    a = xt.init_fpuniform_tr_matrix("L", "N", n, 4, 0, seed=1)
+    b = xt.init_fpuniform(n, 4, 0, seed=2)
+    rs = np.random.RandomState(SEED + 71)
+    bits = rs.randint(0, 1 << 20, size=(n, n), dtype=np.uint32).astype(
+        np.uint64)
+    bits |= np.uint64(0x3C300000)
+    bits[np.diag_indices(n)] |= np.uint64(0x3FF00000)
+    bits <<= np.uint64(32)
+    bits |= rs.randint(0, 1 << 32, size=(n, n), dtype=np.uint64)
+    return a, np.tril(bits).view(np.float64), b
+
+
+def phase_trsv_public(xt, bench) -> tuple[dict, dict]:
+    """The TRSV path at n = 8192: ``extrsv`` on the benchmark's data
+    (overflowing) and on its bounded data, the upper solve of the flipped
+    system and the transposed solve of T^T stored.  Returns the launch
+    counts of this run and B10's largest difference from its plain
+    version on the path's data."""
+    from exblas_tpu_torch.ops.kernels import gemv_kernel as vk
+    from exblas_tpu_torch.ops.kernels import trsv_kernel as tk
+
+    n = N_TRSV
+    a_np, t_np, b_np = bench
+    a, t, b = (torch.from_numpy(v).cuda() for v in bench)
+    tt = t.t().contiguous()          # T^T stored: op(A) = T with ("U", "T")
+    tflip, bflip = t.flip((0, 1)), b.flip(0)
+
+    tk.trsv_lower_x_cuda.launches = 0
+    xa = xt.extrsv("L", "N", "N", a, b)
+    x = xt.extrsv("L", "N", "N", t, b)
+    xu = xt.extrsv("U", "N", "N", tflip, bflip)
+    xtr = xt.extrsv("U", "T", "N", tt, b)
+    torch.cuda.synchronize()
+    launches = {"trsv_lower_x_cuda": tk.trsv_lower_x_cuda.launches}
+    log("TRSV launches on the path:", launches)
+    if launches["trsv_lower_x_cuda"] != 4:
+        raise AssertionError(f"unexpected TRSV launches {launches}")
+    del tflip, bflip, tt
+
+    # the benchmark data: the finite rows are a prefix, as in float64
+    xa_np = xa.cpu().numpy()
+    fin = np.isfinite(xa_np)
+    n_fin = int(fin.sum())
+    if not fin[:n_fin].all():
+        raise AssertionError("bench data: the finite rows are no prefix")
+    log(f"extrsv n={n} bench data (bench_trsv.py:73): {n_fin} of {n} "
+        f"entries finite (rows 0..{n_fin - 1}; float64 forward "
+        "substitution: 1594), the rest +-Inf or NaN "
+        f"({int(np.isnan(xa_np).sum())} NaN, all canonical: "
+        f"{bool((xa_np[np.isnan(xa_np)].view(np.uint64) == 0x7FF8000000000000).all())})")
+    # rows whose products cannot overflow the Dekker split: exact checks
+    top = np.maximum.accumulate(np.abs(np.where(fin, xa_np, np.inf)))
+    safe = np.nonzero(top < 2.0 ** 900)[0]
+    rs = np.random.RandomState(SEED + 72)
+    for i in rs.choice(safe, 64, replace=False):
+        want = exact_dot_host(-a_np[i, :i], xa_np[:i], [b_np[i]]) / a_np[i, i]
+        if s64(xa_np[i]) != s64(want):
+            raise AssertionError(f"bench x[{i}]: {xa_np[i]!r} != {want!r}")
+
+    # the bounded data: 256 rows exactly, the flips, the leading block
+    x_np = x.cpu().numpy()
+    if not np.isfinite(x_np).all():
+        raise AssertionError("bounded data: x is not finite")
+    for i in rs.randint(0, n, 256):
+        want = exact_dot_host(-t_np[i, :i], x_np[:i], [b_np[i]]) / t_np[i, i]
+        if s64(x_np[i]) != s64(want):
+            raise AssertionError(f"bounded x[{i}]: {x_np[i]!r} != exact "
+                                 f"{want!r}")
+    if not torch.equal(xu.flip(0), x) or not torch.equal(xtr, x):
+        raise AssertionError("the U/N flipped or U/T transposed solve "
+                             "differs from L/N")
+    m = N_TRSV_PLAIN
+    tm, bm = t[:m, :m].contiguous().view(torch.int64), b[:m].view(torch.int64)
+    t0 = time.perf_counter()
+    xp = tk.trsv_lower_x_torch(tm.cpu(), bm.cpu(), False)  # on the CPU
+    t_plain = time.perf_counter() - t0
+    errs = {"trsv_lower_x_cuda": mismatch_err(
+        tk.trsv_lower_x_cuda(tm, bm, False).cpu(), xp)}
+    if errs["trsv_lower_x_cuda"] or not torch.equal(x[:m].cpu(), xp.view(
+            torch.float64)):
+        raise AssertionError(f"n={m}: B10 != plain version or the leading "
+                             f"rows of the n={n} solve")
+    # B7 as B10's last panel runs it: T's rows read in place, x negated
+    base = n - tk.B
+    panel = t.view(torch.int64)[base:, :base]
+    xb = x.view(torch.int64)[:base]
+    if rows_err(vk.gemv_rows_acc_cuda(panel, xb, negate_z=True),
+                vk.gemv_rows_acc_torch(panel, xb, negate_z=True)):
+        raise AssertionError("B7 with a row stride and -x != plain version")
+    # numpy input runs on the card
+    x_np_in = xt.extrsv("L", "N", "N", t_np[:m, :m], b_np[:m])
+    if x_np_in.device.type != "cuda" or not torch.equal(x_np_in, x[:m]):
+        raise AssertionError("extrsv on numpy input did not run on the card")
+    log(f"extrsv n={n} bounded data: bit-equal to 256 exact host rows, to "
+        "the U/N solve of the flipped system and to the U/T solve of T^T; "
+        f"64 finite bench rows exact too; n={m}: bit-equal to the plain "
+        f"version ({t_plain:.1f} s on the CPU) and to the leading rows; B7 "
+        f"on the last panel (rows {base}.., row stride {n}, -x) bit-equal "
+        "to its plain version; numpy input ran on the card")
+    return launches, errs
+
+
+def phase_trsv_timing(xt, smi: str, bench) -> dict:
+    """n = 8192: B10 (both block heights) and its panel and diagonal
+    parts, the public entry (L/N, and U/T with its copy of T) and the
+    float64 control on the bounded data; B10 on the benchmark's
+    overflowing data; the plain version at n = 1024."""
+    from exblas_tpu_torch.core.types import L_DOT, N_SPECIAL
+    from exblas_tpu_torch.ops.kernels import _build
+    from exblas_tpu_torch.ops.kernels import trsv_kernel as tk
+
+    n = N_TRSV
+    a, t, b = (torch.from_numpy(v).cuda() for v in bench)
+    ab, tb, bb = (v.view(torch.int64) for v in (a, t, b))
+    tt = t.t().contiguous()
+    tm = {}
+    tm["b10"] = time_ms(lambda: tk.trsv_lower_x_cuda(tb, bb, False), reps=5,
+                        inner=1)
+    tm["b10_64"] = time_ms(lambda: tk.trsv_lower_x_cuda(tb, bb, False,
+                                                        block=64),
+                           reps=3, inner=1)
+    tm["b10_bench"] = time_ms(lambda: tk.trsv_lower_x_cuda(ab, bb, False),
+                              reps=3, inner=1)
+    # the parts, as the C entry launches them: the panels read the solved x
+    x = tk.trsv_lower_x_cuda(tb, bb, False)
+    lib, stream = _build.library(), _build.stream_of(t.device)
+    acc = torch.zeros((tk.B, L_DOT), dtype=torch.int64, device="cuda")
+    spec = torch.zeros((tk.B, N_SPECIAL), dtype=torch.int64, device="cuda")
+    xs = torch.empty_like(x)
+
+    def part(name, out):
+        _build.check(lib.trsv_lower_x_cuda(
+            _build.ptr(tb), _build.ptr(bb), n, 0, tk.B, tk.PARTS[name],
+            _build.ptr(acc), _build.ptr(spec), _build.ptr(out), stream),
+            "trsv_lower_x_cuda")
+
+    tm["panel"] = time_ms(lambda: part("panel", x), reps=5, inner=1)
+    acc.zero_()
+    spec.zero_()
+    tm["diag"] = time_ms(lambda: part("diag", xs), reps=5, inner=1)
+    del acc, spec, xs
+    tm["pub"] = time_ms(lambda: xt.extrsv("L", "N", "N", t, b), reps=3,
+                        inner=1)
+    tm["pub_ut"] = time_ms(lambda: xt.extrsv("U", "T", "N", tt, b), reps=3,
+                           inner=1)
+    tm["copy"] = time_ms(lambda: tt.t().contiguous(), reps=3, inner=1)
+    bcol = b.reshape(-1, 1)
+    tm["lib"] = time_ms(lambda: torch.linalg.solve_triangular(
+        t, bcol, upper=False), reps=5, inner=1)
+    del tt
+    # the plain version once, at n = 1024 (its steps are sequential)
+    pm = 1024
+    pt, pb = tb[:pm, :pm].contiguous(), bb[:pm]
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    tk.trsv_lower_x_torch(pt, pb, False)
+    e1.record()
+    torch.cuda.synchronize()
+    tm["plain"] = e0.elapsed_time(e1)
+
+    # bound: the lower triangle's bytes (b read, x written) against the
+    # integer work of the exact products
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_max_hz()
+    bytes_ = 8.0 * n * (n + 1) / 2 + 16.0 * n
+    by_bytes = bytes_ / HBM_BYTES * 1e3
+    products = n * (n - 1) / 2
+    by_ops = B5_INT_OPS * products / (INT32_LANES * sms * clock) * 1e3
+    log(f"time n={n} [{smi}]:")
+    log(f"  B10 trsv_lower_x_cuda bounded data: {tm['b10']:.4f} ms at block "
+        f"{tk.B} ({tm['b10'] / n * 1e3:.3f} us a row), {tm['b10_64']:.4f} ms "
+        f"at block 64; bench data (special-dominated past row 1593): "
+        f"{tm['b10_bench']:.4f} ms")
+    log(f"  B10 parts: panels (B7 launches) {tm['panel']:.4f} ms, diagonal "
+        f"blocks {tm['diag']:.4f} ms ({tm['diag'] / n * 1e3:.3f} us a "
+        "step of the chain)")
+    log(f"  public xt.extrsv L/N: {tm['pub']:.4f} ms; U/T on T^T stored: "
+        f"{tm['pub_ut']:.4f} ms (its copy of T {tm['copy']:.4f} ms)")
+    log(f"  float64 control torch.linalg.solve_triangular: {tm['lib']:.4f} "
+        "ms")
+    log(f"  plain trsv_lower_x_torch n={pm}: {tm['plain']:.1f} ms")
+    log(f"bounds n={n}: {by_bytes:.4f} ms by the lower triangle's bytes; "
+        f"{by_ops:.4f} ms by {B5_INT_OPS} int32 operations per exact "
+        f"product ({products:.4g} products)")
+    return {"trsv_lower_x_cuda": dict(
+        ms=tm["b10"], plain_ms=tm["plain"], bound_ms=max(by_bytes, by_ops),
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        library_ms=tm["lib"], shape=[n, n], plain_shape=[pm, pm],
+        library="torch.linalg.solve_triangular")}
+
+
+# ---------------------------------------------------------------------------
 # Summary
 # ---------------------------------------------------------------------------
 
@@ -1272,6 +1583,10 @@ GEMV_KERNELS = (
     ("gemv_bits_mxu_cuda", "exblas_tpu_torch/ops/kernels/csrc/gemv_mxu.cu",
      "exblas_tpu/ops/kernels/gemv_mxu.py:648"),
 )
+TRSV_KERNELS = (
+    ("trsv_lower_x_cuda", "exblas_tpu_torch/ops/kernels/csrc/trsv_kernel.cu",
+     "exblas_tpu/ops/kernels/trsv_kernel.py:285"),
+)
 
 
 def main() -> None:
@@ -1294,9 +1609,16 @@ def main() -> None:
     launches.update(gemv_launches)
     for name, e in gemv_errs.items():
         errs[name] = max(errs[name], e)
+    errs.update(phase_trsv_kernels(xt))
+    trsv_bench = trsv_bench_data(xt, N_TRSV)
+    trsv_launches, trsv_errs = phase_trsv_public(xt, trsv_bench)
+    launches.update(trsv_launches)
+    for name, e in trsv_errs.items():
+        errs[name] = max(errs[name], e)
     times = phase_timing(xt, smi)
     gemm_times = phase_gemm_timing(xt, smi, bench)
     gemv_times = phase_gemv_timing(xt, smi, gemv_bench)
+    trsv_times = phase_trsv_timing(xt, smi, trsv_bench)
     summary = []
     for name, src, rep, bpe, lib in KERNELS:
         t_k, t_p, t_n = times[name]
@@ -1311,11 +1633,13 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": errs[name],
             **gemm_times[name], "library": "torch.addmm"})
-    for name, src, rep in GEMV_KERNELS:
-        summary.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": errs[name],
-            **gemv_times[name]})
+    for kernels, kernel_times in ((GEMV_KERNELS, gemv_times),
+                                  (TRSV_KERNELS, trsv_times)):
+        for name, src, rep in kernels:
+            summary.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": launches[name],
+                "max_abs_err": errs[name], **kernel_times[name]})
     log(f"chip_smoke seconds {time.perf_counter() - t0:.1f}")
     log(smi)
     log(json.dumps({"kernels": summary}))

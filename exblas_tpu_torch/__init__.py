@@ -4,8 +4,9 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 The port of ``exblas_tpu`` (JAX on a TPU), held bit for bit against it.
 ``exsum``, ``exdot``, ``exgemv`` and ``exgemm`` return the correctly
 rounded float64 of the exact result (per element for ``exgemv`` and
-``exgemm``), so their bits cannot depend on element order, launch
-geometry or partitioning.  CPU tensors
+``exgemm``), and ``extrsv`` rounds each exactly accumulated row once
+before its correctly rounded divide, so their bits cannot depend on
+element order, launch geometry or partitioning.  CPU tensors
 take the plain PyTorch integer path; CUDA tensors take the kernels in
 ``ops/kernels``, built with ``nvcc`` at first use.  Numpy input goes to
 the current CUDA device unless the call names ``device``.
@@ -15,7 +16,8 @@ Importing the package configures nothing global and imports no JAX.
 
 from . import core
 from .ops import (exdot, exdot_acc, exdot_bits, exgemm, exgemm_bits, exgemv,
-                  exgemv_bits, exsum, exsum_acc, exsum_bits)
+                  exgemv_bits, exsum, exsum_acc, exsum_bits, extrsv,
+                  extrsv_bits)
 from .utils.generators import (
     init_fpuniform,
     init_fpuniform_matrix,
@@ -39,6 +41,8 @@ __all__ = [
     "exdot_bits",
     "exgemv",
     "exgemv_bits",
+    "extrsv",
+    "extrsv_bits",
     "exgemm",
     "exgemm_bits",
     "init_fpuniform",

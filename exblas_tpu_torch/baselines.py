@@ -1,8 +1,9 @@
 """Non-reproducible float64 controls.
 
 Counterpart of ``exblas_tpu/baselines.py``: native ``torch.sum``,
-``torch.dot``, ``alpha * (op(A) @ x) + beta * y`` and ``c + a @ b`` in
-float64 on the tensors' device (numpy input runs on the CPU).  On a GPU
+``torch.dot``, ``alpha * (op(A) @ x) + beta * y``, ``c + a @ b`` and
+``torch.linalg.solve_triangular`` in float64 on the tensors' device (numpy
+input runs on the CPU).  On a GPU
 they reduce in floating point in an order of the library's choosing, so
 they are neither reproducible nor correctly rounded -- they are the speed
 controls the exact routines are timed against.
@@ -42,3 +43,16 @@ def gemm_baseline(a, b, c=None) -> torch.Tensor:
     """float64 ``c + a @ b`` (or ``a @ b``) on the operands' device."""
     r = _f64(a) @ _f64(b)
     return r if c is None else _f64(c) + r
+
+
+def trsv_baseline(uplo: str, trans: str, diag: str, a, b) -> torch.Tensor:
+    """float64 solve of op(T) x = b, T the ``uplo`` triangle of ``a``, on
+    the operands' device (the reference's DTRSV control, ExTRSV.cpp:80-81)."""
+    a = _f64(a)
+    upper = uplo.upper() == "U"
+    if trans.upper() == "T":
+        a = a.t()
+        upper = not upper
+    x = torch.linalg.solve_triangular(a, _f64(b).reshape(-1, 1), upper=upper,
+                                      unitriangular=diag.upper() == "U")
+    return x.reshape(-1)

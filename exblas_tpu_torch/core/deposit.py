@@ -120,12 +120,16 @@ def product_terms(bits_a, bits_b, offset_bits: int):
     p = torch.where(valid, p, torch.zeros_like(p))
     q, r = _limb_pos(p)
 
-    a = mant_pieces14(mant_a)
-    b = mant_pieces14(mant_b)
-    classes = []
-    for k in range(7):
-        terms = [a[i] * b[k - i] for i in range(4) if 0 <= k - i < 4]
-        classes.append(sum(terms[1:], terms[0]))
+    # class k = sum of a_i * b_j over i + j = k, from one outer product
+    a = torch.stack(mant_pieces14(mant_a))
+    b = torch.stack(mant_pieces14(mant_b))
+    a, b = torch.broadcast_tensors(a, b)
+    prods = (a[:, None] * b[None, :]).reshape((16,) + a.shape[1:])
+    pieces = torch.arange(4, device=prods.device)
+    class_of_pair = (pieces[:, None] + pieces[None, :]).reshape(-1)
+    classes = torch.zeros((7,) + a.shape[1:], dtype=prods.dtype,
+                          device=prods.device).index_add_(
+        0, class_of_pair, prods).unbind(0)
 
     s = torch.where(sign == 1, -1, 1)
     s = torch.where(valid, s, torch.zeros_like(s))
@@ -136,7 +140,7 @@ def product_terms(bits_a, bits_b, offset_bits: int):
     nan = is_nan.to(torch.int64)
     pinf = (is_inf & (sign == 0)).to(torch.int64)
     ninf = (is_inf & (sign == 1)).to(torch.int64)
-    return dict(q=q, r=r, classes=tuple(classes), s=s, valid=valid,
+    return dict(q=q, r=r, classes=classes, s=s, valid=valid,
                 nan=nan, pinf=pinf, ninf=ninf)
 
 
@@ -148,13 +152,15 @@ def segment_deposit_products(limbs_flat, t, seg_base):
     ``limbs_flat``.  Up to 5 pieces below 2^20 land on one limb per term,
     so a row takes at most 2^40 terms."""
     q, r, s = t["q"], t["r"], t["s"]
-    for k, cls in enumerate(t["classes"]):
-        # class k sits at bit offset 14k above the product LSB
-        pbit = r + 14 * k
-        dq = torch.div(pbit, LIMB_BITS, rounding_mode="floor")
-        pieces = split_value30(cls, pbit - dq * LIMB_BITS)
-        base = seg_base + q + dq
-        for off, piece in enumerate(pieces):
-            idx, val = torch.broadcast_tensors(base + off, piece * s)
-            limbs_flat.index_add_(0, idx.reshape(-1), val.reshape(-1))
-    return limbs_flat
+    cls = torch.stack(t["classes"])  # (7, ...)
+    # class k sits at bit offset 14k above the product LSB
+    k14 = (14 * torch.arange(7, device=cls.device)).reshape(
+        (7,) + (1,) * (cls.dim() - 1))
+    pbit = r + k14
+    dq = torch.div(pbit, LIMB_BITS, rounding_mode="floor")
+    pieces = torch.stack(split_value30(cls, pbit - dq * LIMB_BITS)) * s
+    base = seg_base + q + dq
+    offs = torch.arange(3, device=cls.device).reshape(
+        (3,) + (1,) * base.dim())
+    idx, val = torch.broadcast_tensors(base + offs, pieces)
+    return limbs_flat.index_add_(0, idx.reshape(-1), val.reshape(-1))

@@ -25,7 +25,7 @@ from .types import (
 )
 
 __all__ = [
-    "QNAN_BITS", "PINF_BITS", "NINF_BITS",
+    "QNAN_BITS", "PINF_BITS", "NINF_BITS", "SIGN_BIT",
     "canonicalize_digits", "negate_digits", "ieee_encode_round",
     "round_digits_to_f64_bits", "round_superacc_to_f64_bits",
     "apply_specials", "bits_to_float",
@@ -35,7 +35,7 @@ __all__ = [
 QNAN_BITS = 0x7FF8000000000000
 PINF_BITS = 0x7FF0000000000000
 NINF_BITS = 0xFFF0000000000000 - (1 << 64)
-_SIGN_BIT = -(1 << 63)
+SIGN_BIT = -(1 << 63)  # the binary64 sign bit, as an int64
 
 
 def canonicalize_digits(limbs):
@@ -49,26 +49,25 @@ def canonicalize_digits(limbs):
     negative carries in the top limb included.
     """
     x = limbs.to(torch.int64)
-    digits = torch.empty_like(x)
     carry = torch.zeros_like(x[..., 0])
-    for j in range(x.shape[-1]):
-        d = x[..., j] + carry
-        digit = d & LIMB_MASK
-        digits[..., j] = digit
-        carry = (d - digit) >> LIMB_BITS
-    return digits.to(torch.int32), carry < 0
+    digits = []
+    for limb in x.unbind(-1):
+        d = limb + carry
+        digits.append(d & LIMB_MASK)
+        carry = d >> LIMB_BITS  # arithmetic shift: floor division
+    return torch.stack(digits, -1).to(torch.int32), carry < 0
 
 
 def negate_digits(digits):
     """Two's complement negation in base 2^20: 2^(20L) - D."""
     x = digits.to(torch.int64)
-    out = torch.empty_like(x)
     borrow = torch.ones_like(x[..., 0])
-    for j in range(x.shape[-1]):
-        t = (x[..., j] ^ LIMB_MASK) + borrow
-        out[..., j] = t & LIMB_MASK
+    out = []
+    for digit in x.unbind(-1):
+        t = (digit ^ LIMB_MASK) + borrow
+        out.append(t & LIMB_MASK)
         borrow = t >> LIMB_BITS
-    return out.to(digits.dtype)
+    return torch.stack(out, -1).to(digits.dtype)
 
 
 def ieee_encode_round(sign, e_msb, m55, sticky_below):
@@ -106,7 +105,7 @@ def ieee_encode_round(sign, e_msb, m55, sticky_below):
     bits = (expf << 52) | (m & ((1 << 52) - 1))
     over = ~subn & (expf >= 2047)
     bits = torch.where(over, torch.full_like(bits, PINF_BITS), bits)
-    return torch.where(sign != 0, bits | _SIGN_BIT, bits)
+    return torch.where(sign != 0, bits | SIGN_BIT, bits)
 
 
 def round_digits_to_f64_bits(digits, negative, fmt: AccFormat,

@@ -122,11 +122,13 @@ def _apply_beta_rows(limbs, special, beta_bits: int, y_bits,
     return limbs, special
 
 
-def round_rows(limbs, special):
+def round_rows(limbs, special, offset_bits: int | None = None):
     """Batched correctly rounded conversion of DOT_FORMAT rows (..., L)
-    with their special counts (..., 3) -> int64 bits (...,)."""
+    with their special counts (..., 3) -> int64 bits (...,).  A window of
+    limbs whose bit 0 is not DOT_FORMAT's passes its own ``offset_bits``."""
     digits, negative = canonicalize_digits(limbs)
-    bits = round_digits_to_f64_bits(digits, negative, DOT_FORMAT)
+    bits = round_digits_to_f64_bits(digits, negative, DOT_FORMAT,
+                                    offset_bits)
     return apply_specials(bits, special)
 
 

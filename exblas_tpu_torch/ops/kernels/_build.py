@@ -42,10 +42,11 @@ SIGNATURES = {
     "mxu_digits_cuda": (_P, _N, _N, _P, _I, _N, _N, _P, _P),
     "mxu_round_cuda": (_P, _I, _N, _N, _P, _P, _P, _N, _I, _N, _N, _I, _I,
                        _P, _P),
-    "gemv_rows_acc_cuda": (_P, _P, _N, _N, _P, _P, _P),
+    "gemv_rows_acc_cuda": (_P, _P, _N, _N, _N, _I, _P, _P, _P),
     "gemv_analyze_cuda": (_P, _N, _N, _P, _P, _P, _P, _P),
     "gemv_mxu_classes_cuda": (_P, _P, _P, _N, _N, _N, _I, _I, _N, _P, _P),
     "gemv_mxu_round_cuda": (_P, _I, _P, _P, _P, _N, _I, _N, _I, _I, _P, _P),
+    "trsv_lower_x_cuda": (_P, _P, _N, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -260,19 +260,22 @@ __device__ __forceinline__ bool decode_product(
   return valid;
 }
 
-// Adds the ND digits of +-(m1:m0) to limbs q.. of a thread's own int64
-// accumulator of L limbs (no atomics); digits outside [0, L) are dropped,
-// which callers rule out by their range checks.
-template <int ND>
-__device__ __forceinline__ void add_digits(long long* limbs, int L, int q,
+// Adds the ND digits of +-(m1:m0) to limbs q.. of a thread's own
+// accumulator of L limbs, limb j at limbs[j * stride] (no atomics); digits
+// outside [0, L) are dropped, which callers rule out by their range checks.
+// Limb is int64, or int32 where the caller bounds the digits a limb takes.
+template <int ND, typename Limb>
+__device__ __forceinline__ void add_digits(Limb* limbs, int L, int q,
                                            unsigned long long m0,
                                            unsigned long long m1,
-                                           bool negative) {
+                                           bool negative, int stride = 1) {
   const unsigned long long w[2] = {m0, m1};
 #pragma unroll
   for (int t = 0; t < ND; ++t) {
     const long long d = digit_at<2>(w, t);
-    if (d != 0 && q + t >= 0 && q + t < L) limbs[q + t] += negative ? -d : d;
+    if (d != 0 && q + t >= 0 && q + t < L) {
+      limbs[(q + t) * stride] += static_cast<Limb>(negative ? -d : d);
+    }
   }
 }
 

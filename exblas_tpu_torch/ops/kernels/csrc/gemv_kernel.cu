@@ -35,6 +35,7 @@
 #include <cstdint>
 
 #include "deposit.cuh"
+#include "round.cuh"
 
 namespace {
 
@@ -47,9 +48,9 @@ constexpr int kUnroll = 4;          // products loaded per thread per step
 constexpr long long kStep = static_cast<long long>(exblas::kBlock) * kUnroll;
 
 __global__ void __launch_bounds__(exblas::kBlock)
-    gemv_rows_kernel(const long long* __restrict__ a,
-                     const long long* __restrict__ z, long long k,
-                     int splits, long long span,
+    gemv_rows_kernel(const long long* __restrict__ a, long long lda,
+                     const long long* __restrict__ z, long long zsign,
+                     long long k, int splits, long long span,
                      unsigned long long* __restrict__ limbs,
                      unsigned long long* __restrict__ special) {
   __shared__ unsigned long long s_acc[kWs];
@@ -58,7 +59,7 @@ __global__ void __launch_bounds__(exblas::kBlock)
   const long long row = blockIdx.x / splits;
   const long long k0 = (blockIdx.x % splits) * span;
   const long long k1 = k0 + span < k ? k0 + span : k;
-  const long long* ar = a + row * k;
+  const long long* ar = a + row * lda;
 
   exblas::BinWindow<kDigits> window;
   long long nan_c = 0, pinf_c = 0, ninf_c = 0;
@@ -69,7 +70,7 @@ __global__ void __launch_bounds__(exblas::kBlock)
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = base + u * blockDim.x + threadIdx.x;
       va[u] = i < k1 ? ar[i] : 0LL;
-      vz[u] = i < k1 ? z[i] : 0LL;
+      vz[u] = i < k1 ? z[i] ^ zsign : 0LL;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -98,18 +99,22 @@ __global__ void __launch_bounds__(exblas::kBlock)
 
 extern "C" {
 
-// a: (m, k) float64, row-major, z: (k,) float64 (read as int64 bits); k >=
-// 1.  limbs: (m, 216) int64 and special: (m, 3) int64, zeroed by the
-// caller; the row sums are added to them.
+// a: (m, k) float64 with rows lda >= k elements apart (row-major: lda = k),
+// z: (k,) float64 (read as int64 bits); k >= 1.  negate_z != 0 flips z's
+// sign bits, so the rows take the products a[i,k] * -z[k] -- exactly those
+// of -a[i,k] * z[k], specials included.  limbs: (m, 216) int64 and special:
+// (m, 3) int64, zeroed by the caller; the row sums are added to them.
 int gemv_rows_acc_cuda(const void* a, const void* z, long long m, long long k,
-                       void* limbs, void* special, void* stream) {
+                       long long lda, int negate_z, void* limbs,
+                       void* special, void* stream) {
   long long splits = 0, span = 0;
   const cudaError_t err = exblas::row_splits(m, k, kStep, &splits, &span);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = m * splits;
   gemv_rows_kernel<<<static_cast<unsigned>(blocks), exblas::kBlock, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(a), static_cast<const long long*>(z), k,
+      static_cast<const long long*>(a), lda, static_cast<const long long*>(z),
+      negate_z ? static_cast<long long>(exblas::kSignBit) : 0LL, k,
       static_cast<int>(splits), span, static_cast<unsigned long long*>(limbs),
       static_cast<unsigned long long*>(special));
   return static_cast<int>(cudaGetLastError());

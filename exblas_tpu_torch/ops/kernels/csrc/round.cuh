@@ -113,46 +113,52 @@ __device__ __forceinline__ unsigned long long round_digits(
                       m55 & ((1ULL << 55) - 1ULL), sticky);
 }
 
-// Round the exact value sum_j limbs[j] * 2^(20 j) of a thread's own int64
-// limbs to binary64 bits; bit p has exponent p - offset_bits.  Limbs outside
-// [jlo, jhi] must be zero (jhi < jlo: the value is zero), so only that range
-// and one limb above it are canonicalized, in place: past the last nonzero
-// limb the carry is 0 or -1, and the digits above are 0 or all ones.  The
-// same steps as round_digits; an exact zero is +0.0.  Shared by the GEMM
-// kernels, one element per call.
-__device__ __forceinline__ unsigned long long round_limbs(long long* limbs,
-                                                          int jlo, int jhi,
-                                                          int L,
-                                                          int offset_bits) {
+// Round the exact value sum_j limbs[j] * 2^(20 j) of a thread's own limbs
+// to binary64 bits; bit p has exponent p - offset_bits.  Limb j lives at
+// limbs[j * stride] (int64, or int32 when every limb and digit fits).
+// Limbs outside [jlo, jhi] must be zero (jhi < jlo: the value is zero), so
+// only that range and one limb above it are canonicalized, in place: past
+// the last nonzero limb the carry is 0 or -1, and the digits above are 0 or
+// all ones.  The same steps as round_digits; an exact zero is +0.0.  Shared
+// by the GEMM, GEMV and TRSV kernels, one element per call.
+template <typename Limb>
+__device__ __forceinline__ unsigned long long round_limbs(Limb* limbs, int jlo,
+                                                          int jhi, int L,
+                                                          int offset_bits,
+                                                          int stride = 1) {
   if (jhi < jlo) return 0ULL;
   const int jtop = jhi + 1 < L ? jhi + 1 : L - 1;
   long long carry = 0;
   for (int j = jlo; j <= jtop; ++j) {
-    const long long d = limbs[j] + carry;
+    const long long d = static_cast<long long>(limbs[j * stride]) + carry;
     const long long digit = d & kLimbMask;
-    limbs[j] = digit;
+    limbs[j * stride] = static_cast<Limb>(digit);
     carry = (d - digit) >> kLimbBits;
   }
   const bool negative = carry < 0;
   if (negative) {  // digits below jlo are 0, so the borrow starts at jlo
     long long borrow = 1;
     for (int j = jlo; j <= jtop; ++j) {
-      const long long t = (limbs[j] ^ kLimbMask) + borrow;
-      limbs[j] = t & kLimbMask;
+      const long long t =
+          (static_cast<long long>(limbs[j * stride]) ^ kLimbMask) + borrow;
+      limbs[j * stride] = static_cast<Limb>(t & kLimbMask);
       borrow = t >> kLimbBits;
     }
   }
   int jstar = jtop;
-  while (jstar >= jlo && limbs[jstar] == 0) --jstar;
+  while (jstar >= jlo && limbs[jstar * stride] == 0) --jstar;
   if (jstar < jlo) return 0ULL;
-  const int p_msb = jstar * kLimbBits + (63 - __clzll(limbs[jstar]));
+  const int p_msb =
+      jstar * kLimbBits +
+      (63 - __clzll(static_cast<long long>(limbs[jstar * stride])));
   const int pos_low = p_msb - 54;
   const int j0 = (pos_low + 60) / kLimbBits - 3;  // floor(pos_low / 20)
   unsigned long long m55 = 0ULL;
   bool sticky = false;
-  for (int j = jlo; j < j0; ++j) sticky = sticky || limbs[j] != 0;
+  for (int j = jlo; j < j0; ++j) sticky = sticky || limbs[j * stride] != 0;
   for (int j = j0 < jlo ? jlo : j0; j <= jstar; ++j) {
-    const unsigned long long d = static_cast<unsigned long long>(limbs[j]);
+    const unsigned long long d =
+        static_cast<unsigned long long>(limbs[j * stride]);
     const int s = kLimbBits * j - pos_low;  // this digit's lsb in the window
     if (s >= 0) {
       m55 |= d << s;

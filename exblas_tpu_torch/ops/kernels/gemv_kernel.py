@@ -10,9 +10,13 @@ beta term and the rounding of ``ops/exgemv.py`` (``_apply_beta_rows``,
 ``round_rows``) take it as it is; limbs are redundant, so compare them as
 canonical digits.
 
-:func:`gemv_rows_acc_cuda` takes contiguous CUDA int64 bit tensors only,
-never falls back, and counts its launches in ``launches``;
-:func:`gemv_rows_acc_torch` is the plain version (``dot_rows_acc``).
+:func:`gemv_rows_acc_cuda` takes CUDA int64 bit tensors only -- z
+contiguous, A with contiguous rows (a row-major matrix, or a block of rows
+and columns of one, read in place with its row stride as ``lda``) -- never
+falls back, and counts its launches in ``launches``.  ``negate_z`` deposits
+the products with -z (z's sign bits flipped), the panel update of the
+triangular solve.  :func:`gemv_rows_acc_torch` is the plain version
+(``dot_rows_acc``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ...core.accumulator import MAX_TERMS, check_n_terms
+from ...core.rounding import SIGN_BIT
 from ...core.types import L_DOT, N_SPECIAL
 from ..exgemv import dot_rows_acc
 from . import _build
@@ -28,12 +33,28 @@ from .gemm_kernel import check_cuda_bits
 
 __all__ = ["gemv_rows_acc_cuda", "gemv_rows_acc_torch"]
 
+def row_stride(a_bits: torch.Tensor, name: str) -> int:
+    """The row stride (BLAS ``lda``) of a CUDA int64 matrix whose rows are
+    contiguous; raises for any other layout."""
+    if a_bits.is_contiguous():
+        check_cuda_bits(a_bits, name, a_bits.shape)
+        return a_bits.shape[1]
+    if a_bits.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got "
+                         f"{a_bits.device}")
+    if (a_bits.dtype != torch.int64 or a_bits.stride(1) != 1
+            or a_bits.stride(0) < a_bits.shape[1]):
+        raise ValueError(f"{name}: expected int64 bits with contiguous "
+                         f"rows, got {a_bits.dtype} with strides "
+                         f"{a_bits.stride()}")
+    return a_bits.stride(0)
 
-def gemv_rows_acc_cuda(a_bits, z_bits):
+
+def gemv_rows_acc_cuda(a_bits, z_bits, negate_z: bool = False):
     """Exact per-row accumulators of CUDA bit tensors a (m, k) and z (k,)
     -> (limbs int64 (m, 216), special int64 (m, 3)) on the device."""
     m, k = a_bits.shape
-    check_cuda_bits(a_bits, "gemv_rows_acc_cuda", (m, k))
+    lda = row_stride(a_bits, "gemv_rows_acc_cuda")
     check_cuda_bits(z_bits, "gemv_rows_acc_cuda", (k,))
     check_n_terms(k, MAX_TERMS)
     dev = a_bits.device
@@ -43,8 +64,8 @@ def gemv_rows_acc_cuda(a_bits, z_bits):
         return limbs, special
     with torch.cuda.device(dev):
         err = _build.library().gemv_rows_acc_cuda(
-            ptr(a_bits), ptr(z_bits), m, k, ptr(limbs), ptr(special),
-            stream_of(dev))
+            ptr(a_bits), ptr(z_bits), m, k, lda, int(negate_z), ptr(limbs),
+            ptr(special), stream_of(dev))
     _build.check(err, "gemv_rows_acc_cuda")
     gemv_rows_acc_cuda.launches += 1
     return limbs, special
@@ -53,6 +74,6 @@ def gemv_rows_acc_cuda(a_bits, z_bits):
 gemv_rows_acc_cuda.launches = 0
 
 
-def gemv_rows_acc_torch(a_bits, z_bits):
+def gemv_rows_acc_torch(a_bits, z_bits, negate_z: bool = False):
     """Plain version of :func:`gemv_rows_acc_cuda` on any device."""
-    return dot_rows_acc(a_bits, z_bits)
+    return dot_rows_acc(a_bits, z_bits ^ SIGN_BIT if negate_z else z_bits)
