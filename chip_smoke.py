@@ -9,11 +9,25 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 It builds the CUDA kernels from the checkout's sources and then, for each
 slice of the port:
 
-* ExSUM/ExDOT: holds each kernel bit for bit against its plain PyTorch
-  version at n in {1, 17, 2^20+3, 2^24} on every listed distribution
-  (specials included), drives the public API (``exsum``, ``exdot``,
-  ``exsum_acc``, ``exdot_acc``) on CUDA tensors at n = 2^24 against exact
-  host oracles and checks that this path went through the kernels;
+* ExSUM/ExDOT: holds the exact kernels B2/B4 bit for bit against their
+  plain PyTorch versions at n in {1, 17, 2^20+3, 2^24} on every listed
+  distribution (specials included); holds the anchored-window kernels B11
+  (``sum_flat_cuda``, windows of 96, 128 and 160 bits) and B12
+  (``dot_flat_cuda``) against theirs at n in {1, 17, 65539, 2^20+3, 2^24}
+  on the BLAS-1 benchmark data and edge cases (subnormals, zeros, all
+  negative, cancellation to +0, NaN/+Inf/-Inf, zeros against uncovered
+  partners, subnormal products) at the exact anchor, 8 bits above it and
+  one bit below it (the flag every time, the window sums where it is
+  clear, the host's exact value on the smaller sizes), and the rounding
+  kernel B3 (``round_scaled_terms_cuda``) on 10,000 random term vectors
+  (200 also against Fraction rounding); drives the public API
+  (``exsum``, ``exdot`` and their bits and Superacc entries) on CUDA
+  tensors at n = 2^24 on the benchmark data of ``benchmarks/bench_sum.py``
+  and ``bench_dot.py`` and on data too wide for any window: each call must
+  take the tier the JAX package's routing rules give (replayed in numpy),
+  launch the kernels that tier names, and match the exact kernels' bits
+  and state, the host's exact value, a permutation and a 7-way
+  partition; and checks that this path launched all seven kernels;
 * ExGEMM: holds the exact kernel and the int8 slice kernel bit for bit
   against their plain versions on five shapes, ten distributions, every
   beta mode, both transposes and four rungs; drives ``exgemm`` at n = 4096
@@ -40,8 +54,9 @@ slice of the port:
   the transposed solves, and the plain version at n = 2048), and checks
   that this path launched B10;
 
-then times kernels, plain versions and the native float64 controls with
-CUDA events and prints one JSON summary line per the contract below.  Any
+then times kernels, plain versions, the public ladders (with their host
+synchronizations) and the native float64 controls with CUDA events and
+prints one JSON summary line per the contract below.  Any
 failure raises, so the script exits non-zero without the final line.  It
 also exits non-zero when no CUDA device is present.
 
@@ -51,6 +66,7 @@ Last line: {"ok": true, "device": {"platform": "gpu", "kind": ...,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -273,76 +289,255 @@ def exact_dot_host(a: np.ndarray, b: np.ndarray, extra=()) -> float:
                      .tolist())
 
 
+# The BLAS-1 benchmark data (benchmarks/bench_sum.py:32-37,
+# benchmarks/bench_dot.py:27-37), made by the port's generators with the
+# same seeds, plus data too wide for any window (the exact tier).
+def bench_sum_data(xt, n: int) -> dict:
+    return {"narrow": xt.init_fpuniform(n, 2, 0, seed=7),
+            "wide": xt.init_fpuniform(n, 50, -25, seed=8),
+            "illcond": xt.init_ill_cond(n, 1e30, seed=9),
+            "lognormal": xt.init_lognormal(n, 1.0, 2.0, seed=10),
+            "wide300": make_input(xt, "wide", n, SEED + 3)}
+
+
+def bench_dot_data(xt, n: int) -> dict:
+    rng = np.random.default_rng(5)
+    return {"narrow": (xt.init_fpuniform(n, 2, 0, seed=7),
+                       xt.init_fpuniform(n, 2, 0, seed=8)),
+            "wide": (xt.init_fpuniform(n, 50, -25, seed=9),
+                     xt.init_fpuniform(n, 50, -25, seed=10)),
+            "lognormal": (xt.init_lognormal(n, 1.0, 2.0, seed=11),
+                          xt.init_lognormal(n, 1.0, 2.0, seed=12)),
+            "illcond_1e30": (xt.init_ill_cond(n, 1e30, seed=13),
+                             rng.uniform(0.5, 2.0, n)),
+            "wide300": (make_input(xt, "wide", n, SEED + 3),
+                        make_input(xt, "wide", n, SEED + 4))}
+
+
+# The JAX package's routing rules (exblas_tpu/ops/kernels/sum_mxu.py:60-172,
+# ops/exsum.py:52-116, ops/exdot.py:44-130) replayed in numpy on the host,
+# independently of the port's code: the tiers the ladders must take.
+
+def np_anchor_spread(bits: np.ndarray):
+    expf = (bits >> 52) & 0x7FF
+    anchor = int(expf.max()) - 1023 + 8
+    e1 = expf[expf >= 1]
+    return anchor, 61 if e1.size == 0 else anchor - (int(e1.min()) - 1075) + 1
+
+
+def np_resolved(bits: np.ndarray, boundaries):
+    nch = bits.size // 8192
+    s = bits
+    if nch >= 2:
+        s = np.concatenate([bits[:nch * 8192].reshape(nch, 8192)[::8].ravel(),
+                            bits[-8192:]])
+    e, sp = np_anchor_spread(s)
+    if any(b - 16 < sp <= b for b in boundaries):
+        e, sp = np_anchor_spread(bits)
+    return e, sp
+
+
+def np_flag(bits: np.ndarray, anchor: int, w: int) -> bool:
+    expf = (bits >> 52) & 0x7FF
+    special = expf == 0x7FF
+    nz = ((bits & 0x7FFFFFFFFFFFFFFF) != 0) & ~special
+    sh = np.maximum(expf, 1) - 1075 - (anchor + 1 - w)
+    return bool(np.any(special | (nz & ((sh < 0) | (sh > w - 53)))))
+
+
+def np_exact_anchor(bits: np.ndarray) -> int:
+    return int(((bits >> 52) & 0x7FF).max()) - 1023
+
+
+def np_sum_route(x: np.ndarray) -> tuple:
+    bits = x.view(np.int64)
+    e, sp = np_resolved(bits, (96, 128, 168))
+    for bound, nwa, deslack in ((96, 3, 0), (128, 4, 0), (168, 5, 8)):
+        if sp <= bound:
+            break
+    else:
+        return ("exact",)
+    if not np_flag(bits, e - deslack, 32 * nwa):
+        return (f"nwa{nwa}",)
+    if not np_flag(bits, np_exact_anchor(bits), 160):
+        return (f"nwa{nwa}", "retry")
+    return (f"nwa{nwa}", "retry", "exact")
+
+
+def np_dot_route(a: np.ndarray, b: np.ndarray) -> tuple:
+    ba, bb = a.view(np.int64), b.view(np.int64)
+    ea, sa = np_resolved(ba, (168,))
+    eb, sb = np_resolved(bb, (168,))
+    if sa > 168 or sb > 168:
+        return ("exact",)
+    ea -= 8 if sa > 160 else 0
+    eb -= 8 if sb > 160 else 0
+    if not (np_flag(ba, ea, 160) or np_flag(bb, eb, 160)):
+        return ("fast",)
+    if sa > 160 or sb > 160:
+        return ("fast", "exact")
+    if not (np_flag(ba, np_exact_anchor(ba), 160)
+            or np_flag(bb, np_exact_anchor(bb), 160)):
+        return ("fast", "retry")
+    return ("fast", "retry", "exact")
+
+
+def sum_dot_wrappers():
+    """Every kernel wrapper of the ExSUM/ExDOT path, by name."""
+    from exblas_tpu_torch.ops.kernels import dot_kernel as dk
+    from exblas_tpu_torch.ops.kernels import dot_mxu as dm
+    from exblas_tpu_torch.ops.kernels import round_in_kernel as rk
+    from exblas_tpu_torch.ops.kernels import sum_kernel as sk
+    from exblas_tpu_torch.ops.kernels import sum_mxu as sm
+
+    return {w.__name__: w for w in (
+        sk.exsum_acc_cuda, sk.exsum_bits_cuda, dk.exdot_acc_cuda,
+        dk.exdot_bits_cuda, sm.sum_flat_cuda, dm.dot_flat_cuda,
+        rk.round_scaled_terms_cuda)}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside do not count towards the main path's run: the
+    comparisons with other kernels and plain versions."""
+    wrappers = sum_dot_wrappers()
+    saved = {k: w.launches for k, w in wrappers.items()}
+    try:
+        yield
+    finally:
+        for k, w in wrappers.items():
+            w.launches = saved[k]
+
+
+def route_launches(route: tuple, window: str, exact: str) -> dict:
+    """The launches a bits call on ``route`` makes: each window pass runs
+    its window kernel and B3 (the flag is read after both), the exact tier
+    its exact kernel."""
+    passes = sum(t != "exact" for t in route)
+    want = {window: passes, "round_scaled_terms_cuda": passes,
+            exact: int(route[-1] == "exact")}
+    return {k: v for k, v in want.items() if v}
+
+
+def launch_delta(before: dict) -> dict:
+    now = {k: w.launches for k, w in sum_dot_wrappers().items()}
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
 def phase_public_api(xt) -> dict:
-    """The port's main path: exsum/exdot (and the _acc entries for the
-    partition merge) on CUDA tensors at n = 2^24.  Returns the launch
-    counts of this run."""
+    """The port's main path: exsum/exdot and their bits and Superacc
+    entries on CUDA tensors at n = 2^24 on the BLAS-1 benchmark data and
+    on data too wide for any window.  Each call takes the tier the JAX
+    package's rules give (replayed in numpy), launches the kernels that
+    tier names, and gives the exact kernels' bits and state, the host's
+    exact value, the same bits under a permutation and in a 7-way
+    partition.  Returns the launch counts of this run."""
     from exblas_tpu_torch.core.rounding import round_superacc_to_f64_bits
+    from exblas_tpu_torch.ops.exdot import (_exdot_acc_mxu_auto,
+                                            _exdot_bits_mxu_auto)
+    from exblas_tpu_torch.ops.exsum import (_exsum_acc_mxu_auto,
+                                            _exsum_bits_mxu_auto)
     from exblas_tpu_torch.ops.kernels import dot_kernel as dk
     from exblas_tpu_torch.ops.kernels import sum_kernel as sk
 
-    wrappers = (sk.exsum_acc_cuda, sk.exsum_bits_cuda, dk.exdot_acc_cuda,
-                dk.exdot_bits_cuda)
-    host = {d: make_input(xt, d, N_BIG, SEED + k)
-            for k, d in enumerate(("lognormal", "ill_cond"))}
+    wrappers = sum_dot_wrappers()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     perm = torch.randperm(N_BIG, device="cuda", generator=gen)
     bounds = np.linspace(0, N_BIG, 8).astype(int)
-    for w in wrappers:
+    for w in wrappers.values():
         w.launches = 0
 
-    for dist, x_np in host.items():
-        x = torch.from_numpy(x_np).cuda()
-        s = xt.exsum(x)
-        checks = {
-            "math.fsum": math.fsum(x_np.tolist()),
-            "parallel=False (C++ backend)": xt.exsum(x, parallel=False),
-            "permuted": xt.exsum(x[perm]),
-        }
+    def partition(fn, *vs):
         total = None
         for lo, hi in zip(bounds[:-1], bounds[1:]):
-            part = xt.exsum_acc(x[lo:hi])
+            part = fn(*(v[lo:hi] for v in vs))
             total = part if total is None else total + part
-        checks["7-way partition"] = float(
-            round_superacc_to_f64_bits(total).cpu().view(torch.float64))
+        return float(round_superacc_to_f64_bits(total).cpu().view(
+            torch.float64))
+
+    for dist, x_np in bench_sum_data(xt, N_BIG).items():
+        x = torch.from_numpy(x_np).cuda()
+        before = {k: w.launches for k, w in wrappers.items()}
+        bits = int(xt.exsum_bits(x))
+        route, delta = _exsum_bits_mxu_auto.route, launch_delta(before)
+        want_route = np_sum_route(x_np)
+        want_delta = route_launches(route, "sum_flat_cuda", "exsum_bits_cuda")
+        if route != want_route or delta != want_delta:
+            raise AssertionError(f"exsum_bits {dist}: route {route} launches "
+                                 f"{delta}, want {want_route} {want_delta}")
+        s = xt.exsum(x)
+        acc = xt.exsum_acc(x)
+        acc_route = _exsum_acc_mxu_auto.route
+        checks = {"exsum_bits": float(np.int64(bits).view(np.float64)),
+                  "math.fsum": math.fsum(x_np.tolist()),
+                  "parallel=False (C++ backend)": xt.exsum(x,
+                                                           parallel=False),
+                  "permuted": xt.exsum(x[perm]),
+                  "7-way partition": partition(xt.exsum_acc, x),
+                  "exsum_acc": float(round_superacc_to_f64_bits(acc).cpu()
+                                     .view(torch.float64))}
+        with uncounted():
+            checks["B2b exsum_bits_cuda"] = float(np.int64(int(
+                sk.exsum_bits_cuda(x))).view(np.float64))
+            if acc_route != route or same_acc(acc, sk.exsum_acc_cuda(x)):
+                raise AssertionError(f"exsum_acc {dist}: route {acc_route} "
+                                     "or state differs from B2a's")
         for what, v in checks.items():
             if f64_bits(v) != f64_bits(s):
                 raise AssertionError(f"exsum {dist}: {s!r} != {what} {v!r}")
-        log(f"exsum n={N_BIG} {dist}: {s!r} bit-equal to "
-            + ", ".join(checks))
+        log(f"exsum n={N_BIG} {dist}: route {route}, launches {delta}; "
+            f"{s!r} bit-equal to " + ", ".join(checks)
+            + "; exsum_acc state equal to B2a's")
 
-    for dist in ("lognormal", "ill_cond"):
-        a_np = host[dist]
-        b_np = make_input(xt, dist, N_BIG, SEED + 7)
+    for dist, (a_np, b_np) in bench_dot_data(xt, N_BIG).items():
         a = torch.from_numpy(a_np).cuda()
         b = torch.from_numpy(b_np).cuda()
+        before = {k: w.launches for k, w in wrappers.items()}
+        bits = int(xt.exdot_bits(a, b))
+        route, delta = _exdot_bits_mxu_auto.route, launch_delta(before)
+        want_route = np_dot_route(a_np, b_np)
+        want_delta = route_launches(route, "dot_flat_cuda", "exdot_bits_cuda")
+        if route != want_route or delta != want_delta:
+            raise AssertionError(f"exdot_bits {dist}: route {route} launches "
+                                 f"{delta}, want {want_route} {want_delta}")
         d = xt.exdot(a, b)
-        checks = {"exact host dot (TwoProduct + fsum)":
+        acc = xt.exdot_acc(a, b)
+        acc_route = _exdot_acc_mxu_auto.route
+        checks = {"exdot_bits": float(np.int64(bits).view(np.float64)),
+                  "exact host dot (TwoProduct + fsum)":
                   exact_dot_host(a_np, b_np),
-                  "permuted": xt.exdot(a[perm], b[perm])}
-        total = None
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
-            part = xt.exdot_acc(a[lo:hi], b[lo:hi])
-            total = part if total is None else total + part
-        checks["7-way partition"] = float(
-            round_superacc_to_f64_bits(total).cpu().view(torch.float64))
+                  "permuted": xt.exdot(a[perm], b[perm]),
+                  "7-way partition": partition(xt.exdot_acc, a, b),
+                  "exdot_acc": float(round_superacc_to_f64_bits(acc).cpu()
+                                     .view(torch.float64))}
+        with uncounted():
+            checks["B4b exdot_bits_cuda"] = float(np.int64(int(
+                dk.exdot_bits_cuda(a, b))).view(np.float64))
+            if acc_route != route or same_acc(acc, dk.exdot_acc_cuda(a, b)):
+                raise AssertionError(f"exdot_acc {dist}: route {acc_route} "
+                                     "or state differs from B4a's")
         for what, v in checks.items():
             if f64_bits(v) != f64_bits(d):
                 raise AssertionError(f"exdot {dist}: {d!r} != {what} {v!r}")
-        log(f"exdot n={N_BIG} {dist}: {d!r} bit-equal to " + ", ".join(checks))
+        log(f"exdot n={N_BIG} {dist}: route {route}, launches {delta}; "
+            f"{d!r} bit-equal to " + ", ".join(checks)
+            + "; exdot_acc state equal to B4a's")
 
     torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = {k: w.launches for k, w in wrappers.items()}
     log("launches on the main path:", launches)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     # numpy input runs on the card
-    x_np = host["lognormal"]
-    if (xt.exsum_bits(x_np).device.type != "cuda"
-            or f64_bits(xt.exsum(x_np)) != f64_bits(math.fsum(x_np.tolist()))):
-        raise AssertionError("exsum on numpy input did not run on the card")
+    x_np = bench_sum_data(xt, 1 << 20)["lognormal"]
+    with uncounted():
+        if (xt.exsum_bits(x_np).device.type != "cuda"
+                or f64_bits(xt.exsum(x_np))
+                != f64_bits(math.fsum(x_np.tolist()))):
+            raise AssertionError("exsum on numpy input did not run on the "
+                                 "card")
     return launches
 
 
@@ -398,6 +593,377 @@ def phase_timing(xt, smi: str) -> dict:
         t_d = time_ms(lambda: xt.exdot_bits(a, b))
         log(f"time n={N_BIG} {dist} public: xt.exsum_bits {t_s:.4f} ms, "
             f"xt.exdot_bits {t_d:.4f} ms [{smi}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The ExSUM/ExDOT fast paths: B11, B12 and B3 against their plain versions
+# ---------------------------------------------------------------------------
+
+FAST_SIZES = (1, 17, 65539, (1 << 20) + 3, N_BIG)
+FAST_SUM_DISTS = ("bench_narrow", "bench_wide", "bench_illcond",
+                  "bench_lognormal", "subnormals", "zeros_mixed",
+                  "all_negative", "cancellation", "nan", "pinf", "ninf")
+FAST_DOT_DISTS = ("bench_narrow", "bench_wide", "bench_lognormal",
+                  "bench_illcond", "zeros_vs_outside", "subnormal_products",
+                  "nan", "pinf", "ninf")
+B3_VECTORS = 10000
+B3_FRACTION = 200
+
+
+def fast_input(xt, dist: str, n: int, seed: int) -> np.ndarray:
+    """One operand of the fast-path kernel checks."""
+    rs = np.random.RandomState(seed)
+    if dist == "bench_narrow":
+        return xt.init_fpuniform(n, 2, 0, seed=seed)
+    if dist == "bench_wide":
+        return xt.init_fpuniform(n, 50, -25, seed=seed)
+    if dist == "bench_illcond":
+        return xt.init_ill_cond(n, 1e30, seed=seed)
+    if dist == "bench_lognormal":
+        return xt.init_lognormal(n, 1.0, 2.0, seed=seed)
+    if dist == "subnormals":
+        return xt.init_fpuniform(n, 40, -1070, seed=seed) * np.where(
+            rs.rand(n) < 0.5, -1.0, 1.0)
+    if dist == "zeros_mixed":
+        return np.where(rs.rand(n) < 0.4, 0.0,
+                        xt.init_fpuniform(n, 30, -10, seed=seed))
+    if dist == "all_negative":
+        return -xt.init_fpuniform(n, 20, -5, seed=seed)
+    if dist == "cancellation":   # sums to +0 exactly
+        v = xt.init_fpuniform(n // 2, 40, -20, seed=seed)
+        return np.concatenate([v, -v[::-1], np.zeros(n % 2)])
+    return make_input(xt, dist, n, seed)   # nan, pinf, ninf
+
+
+def fast_pair(xt, dist: str, n: int, seed: int):
+    if dist == "zeros_vs_outside":
+        # zeros in a against partners far below b's window: each side is
+        # checked on its own, so b's flag must show
+        a = xt.init_fpuniform(n, 20, -10, seed=seed)
+        b = xt.init_fpuniform(n, 20, -10, seed=seed + 1)
+        k = np.random.RandomState(seed).randint(0, n)
+        a[k], b[k] = 0.0, 2.0**-900
+        return a, b
+    if dist == "subnormal_products":
+        return (xt.init_fpuniform(n, 20, -530, seed=seed),
+                xt.init_fpuniform(n, 20, -530, seed=seed + 1))
+    if dist in ("nan", "pinf", "ninf"):
+        return (fast_input(xt, dist, n, seed),
+                fast_input(xt, "bench_narrow", n, seed + 1))
+    return fast_input(xt, dist, n, seed), fast_input(xt, dist, n, seed + 1)
+
+
+def frame_value(rel: torch.Tensor) -> int:
+    """The exact integer of a B11/B12 frame: term k at bit 32 k."""
+    return sum(int(v) << (32 * k) for k, v in enumerate(rel.tolist()))
+
+
+def host_scaled(x: np.ndarray):
+    """(m, e) per finite element: x = m * 2^e with m a signed int64."""
+    bits = x.view(np.int64)
+    expf = (bits >> 52) & 0x7FF
+    frac = bits & ((1 << 52) - 1)
+    m = np.where(expf != 0, frac | (1 << 52), frac)
+    return np.where(bits < 0, -m, m), np.maximum(expf, 1) - 1075
+
+
+def host_sum_frame(x: np.ndarray, e0: int) -> int:
+    """The exact sum of finite x in units of 2^e0 (an int)."""
+    m, e = host_scaled(x)
+    return sum(int(mi) << int(ei - e0) for mi, ei in zip(m, e) if mi)
+
+
+def host_dot_frame(a: np.ndarray, b: np.ndarray, e0: int) -> int:
+    ma, la = host_scaled(a)
+    mb, lb = host_scaled(b)
+    return sum((int(x) * int(y)) << int(p + q - e0)
+               for x, y, p, q in zip(ma, mb, la, lb) if x and y)
+
+
+def frame_err(rk, bk, rp, bp) -> float:
+    """0 when two frames agree (flags always, terms where the flag is
+    clear), else their exact difference (1 for a flag mismatch)."""
+    if bool(bk) != bool(bp):
+        return 1.0
+    if bool(bk) or torch.equal(rk.cpu(), rp.cpu()):
+        return 0.0
+    return float(abs(frame_value(rk) - frame_value(rp)))
+
+
+def phase_fast_kernels(xt) -> dict:
+    """B11 (nwa 3, 4, 5) and B12 at the exact anchor, 8 bits above it and
+    one bit below it, against their plain versions: the flag every time,
+    the frame's terms where it is clear, the host's exact value on the
+    smaller sizes; B3 on random term vectors against its plain version on
+    the host's CPU and against Fraction rounding."""
+    from fractions import Fraction
+
+    from exblas_tpu_torch.ops.kernels import dot_mxu as dm
+    from exblas_tpu_torch.ops.kernels import round_in_kernel as rk
+    from exblas_tpu_torch.ops.kernels import sum_mxu as sm
+
+    errs = {"sum_flat_cuda": 0.0, "dot_flat_cuda": 0.0,
+            "round_scaled_terms_cuda": 0.0}
+    failures = []
+    cases = 0
+    for n in FAST_SIZES:
+        for i, dist in enumerate(FAST_SUM_DISTS):
+            x_np = fast_input(xt, dist, n, SEED + 31 * i + n % 997)
+            x = torch.from_numpy(x_np).cuda()
+            e = sm.exact_anchor(x)
+            flags = []
+            for nwa in (3, 4, 5):
+                for de in (0, 8, -1):
+                    anchor = e + de
+                    rk_, bk = sm.sum_flat_cuda(x, anchor, nwa)
+                    rp, bp = sm.sum_flat_torch(x, anchor, nwa)
+                    err = frame_err(rk_, bk, rp, bp)
+                    errs["sum_flat_cuda"] = max(errs["sum_flat_cuda"], err)
+                    cases += 1
+                    flags.append(int(bool(bk)))
+                    if err:
+                        failures.append(f"B11 n={n} {dist} nwa={nwa} de={de}")
+                    if de == -1 and not bool(bk) and int(e) > -1023:
+                        failures.append(f"B11 n={n} {dist} nwa={nwa}: no "
+                                        "flag one bit below the anchor")
+                    if (de == 0 and nwa == 5 and n <= 65539 and not bool(bk)
+                            and frame_value(rk_) != host_sum_frame(
+                                x_np, int(e) + 1 - 160)):
+                        failures.append(f"B11 n={n} {dist}: != host sum")
+            log(f"B11 n={n} {dist}: flags (nwa 3,4,5 x anchor +0,+8,-1) "
+                f"{flags}")
+        for i, dist in enumerate(FAST_DOT_DISTS):
+            a_np, b_np = fast_pair(xt, dist, n, SEED + 37 * i + n % 991)
+            a = torch.from_numpy(a_np).cuda()
+            b = torch.from_numpy(b_np).cuda()
+            ea, eb = sm.exact_anchor(a), sm.exact_anchor(b)
+            flags = []
+            for da, db in ((0, 0), (8, 8), (-1, 0), (0, -1)):
+                rk_, bk = dm.dot_flat_cuda(a, b, ea + da, eb + db)
+                rp, bp = dm.dot_flat_torch(a, b, ea + da, eb + db)
+                err = frame_err(rk_, bk, rp, bp)
+                errs["dot_flat_cuda"] = max(errs["dot_flat_cuda"], err)
+                cases += 1
+                flags.append(int(bool(bk)))
+                if err:
+                    failures.append(f"B12 n={n} {dist} anchors +{da},+{db}")
+                if (da == db == 0 and n <= 65539 and not bool(bk)
+                        and frame_value(rk_) != host_dot_frame(
+                            a_np, b_np, int(ea) + int(eb) + 2 - 320)):
+                    failures.append(f"B12 n={n} {dist}: != host dot")
+            if dist == "zeros_vs_outside" and n > 1 and not flags[0]:
+                failures.append(f"B12 n={n}: a zero hid b's uncovered element")
+            log(f"B12 n={n} {dist}: flags (anchors +0/+0, +8/+8, -1/+0, "
+                f"+0/-1) {flags}")
+    torch.cuda.synchronize()
+
+    rs = np.random.RandomState(SEED)
+    for k in range(B3_VECTORS):
+        t = int(rs.randint(1, 129))
+        vals = rs.randint(-(1 << 52) + 1, 1 << 52, t, dtype=np.int64)
+        pos = tuple(int(p) for p in rs.randint(0, 400, t))
+        eadj = int(rs.randint(-1300, 1100))
+        v = torch.from_numpy(vals)
+        bk = int(rk.round_scaled_terms_cuda(
+            v.cuda(), pos, torch.tensor(eadj, dtype=torch.int32).cuda()))
+        bp = int(rk.round_scaled_terms_torch(v, pos, eadj))
+        err = bits_err(bk, bp)
+        if k < B3_FRACTION:
+            exact = sum(int(x) << p for x, p in zip(vals.tolist(), pos))
+            want = fraction_bits(Fraction(exact) * Fraction(2) ** eadj)
+            err = max(err, bits_err(bk, want))
+        errs["round_scaled_terms_cuda"] = max(
+            errs["round_scaled_terms_cuda"], err)
+        if err:
+            failures.append(f"B3 vector {k}")
+    if failures:
+        raise AssertionError(f"fast-path kernel != plain version: "
+                             f"{failures[:20]}")
+    log(f"fast-path kernels vs plain versions: bit-equal (tolerance 0) on "
+        f"{cases} B11/B12 cases and {B3_VECTORS} B3 vectors "
+        f"({B3_FRACTION} also against Fraction rounding)")
+    return errs
+
+
+def fraction_bits(v) -> int:
+    """The int64 bits of the correctly rounded double of a Fraction."""
+    from fractions import Fraction
+
+    # 2^1024 - 2^970: from here on a value rounds to infinity
+    bound = Fraction((1 << 2098) - (1 << 2044), 1 << 1074)
+    if v >= bound:
+        return s64(math.inf)
+    if v <= -bound:
+        return s64(-math.inf)
+    return s64(float(v))
+
+
+def count_syncs(fn) -> int:
+    """Host synchronizations of one call, as PyTorch's sync debug mode
+    reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def host_ms(fn, reps: int = 21) -> float:
+    """Median host-clock time of one call that ends in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples) * 1e3
+
+
+def ladder_breakdown(xt, x_np: np.ndarray, ab_np, smi: str) -> None:
+    """Host-clock times of the ladders' steps on lognormal bench data:
+    where a public call's time goes when the card waits for the host."""
+    from exblas_tpu_torch.ops.kernels import dot_mxu as dm
+    from exblas_tpu_torch.ops.kernels import round_in_kernel as rk
+    from exblas_tpu_torch.ops.kernels import sum_kernel as sk
+    from exblas_tpu_torch.ops.kernels import sum_mxu as sm
+
+    x = torch.from_numpy(x_np).cuda()
+    a, b = (torch.from_numpy(v).cuda() for v in ab_np)
+    e = sm.exact_anchor(x)
+    ea, eb = sm.exact_anchor(a), sm.exact_anchor(b)
+    rel, _ = sm.sum_flat_cuda(x, e, 3)
+    parts = {
+        "sum public": lambda: xt.exsum_bits(x),
+        "sample_anchor (1 sync)": lambda: sm.sample_anchor(x),
+        "full_anchor (1 sync)": lambda: sm.full_anchor(x),
+        "device_anchor": lambda: sm.device_anchor(0, x.device),
+        "B11 sum_flat_cuda": lambda: sm.sum_flat_cuda(x, e, 3),
+        "B3 round_scaled_terms_cuda": lambda: rk.round_scaled_terms_cuda(
+            rel, sm.frame_positions(3), e, 1 - 96),
+        "window pass + flag (1 sync)": lambda: bool(
+            sm.sum_bits_mxu(x, e, 3, True)[1]),
+        "B2b exsum_bits_cuda": lambda: sk.exsum_bits_cuda(x),
+        "dot public": lambda: xt.exdot_bits(a, b),
+        "B12 dot_flat_cuda": lambda: dm.dot_flat_cuda(a, b, ea, eb),
+        "dot window pass + flag (1 sync)": lambda: bool(
+            dm.dot_bits_mxu(a, b, ea, eb, True)[1]),
+    }
+    log(f"host-clock breakdown, n={N_BIG} lognormal bench data [{smi}]: "
+        + ", ".join(f"{k} {host_ms(f):.4f} ms" for k, f in parts.items()))
+
+
+def phase_fast_timing(xt, smi: str) -> dict:
+    """CUDA-event times at n = 2^24 on the benchmark data: B11 at each
+    window, B12, B3 (and an empty launch, its bound), their plain versions,
+    the public ladders per distribution against the exact kernels and the
+    native float64 calls, and the ladder against the exact kernel from
+    n = 2^16 to 2^22 on lognormal data."""
+    from exblas_tpu_torch.ops.exdot import _exdot_bits_mxu_auto
+    from exblas_tpu_torch.ops.exsum import _exsum_bits_mxu_auto
+    from exblas_tpu_torch.ops.kernels import dot_kernel as dk
+    from exblas_tpu_torch.ops.kernels import dot_mxu as dm
+    from exblas_tpu_torch.ops.kernels import round_in_kernel as rk
+    from exblas_tpu_torch.ops.kernels import sum_kernel as sk
+    from exblas_tpu_torch.ops.kernels import sum_mxu as sm
+
+    out = {}
+    sums = bench_sum_data(xt, N_BIG)
+    dots = bench_dot_data(xt, N_BIG)
+    with uncounted():
+        x = torch.from_numpy(sums["lognormal"]).cuda()
+        a, b = (torch.from_numpy(v).cuda() for v in dots["lognormal"])
+        _exsum_bits_mxu_auto(x, True)
+        nwa_main = int(_exsum_bits_mxu_auto.route[0][3:])
+        e = sm.exact_anchor(x)
+        t_lib = time_ms(lambda: torch.sum(x))
+        for nwa in (3, 4, 5):
+            t_k = time_ms(lambda: sm.sum_flat_cuda(x, e, nwa))
+            log(f"time n={N_BIG} lognormal B11 sum_flat_cuda nwa={nwa}: "
+                f"{t_k:.4f} ms ({8 * N_BIG / (t_k * 1e-3) / 1e9:.1f} GB/s) "
+                f"[{smi}]")
+            if nwa == nwa_main:
+                t_p = time_ms(lambda: sm.sum_flat_torch(x, e, nwa), reps=3,
+                              inner=1)
+                out["sum_flat_cuda"] = dict(
+                    ms=t_k, plain_ms=t_p, bound_ms=8 * N_BIG / HBM_BYTES * 1e3,
+                    bound_by="bytes", library_ms=t_lib, shape=[N_BIG],
+                    library="torch.sum", window_bits=32 * nwa)
+        ea, eb = sm.exact_anchor(a), sm.exact_anchor(b)
+        t_k = time_ms(lambda: dm.dot_flat_cuda(a, b, ea, eb))
+        t_p = time_ms(lambda: dm.dot_flat_torch(a, b, ea, eb), reps=3, inner=1)
+        t_lib = time_ms(lambda: torch.dot(a, b))
+        out["dot_flat_cuda"] = dict(
+            ms=t_k, plain_ms=t_p, bound_ms=16 * N_BIG / HBM_BYTES * 1e3,
+            bound_by="bytes", library_ms=t_lib, shape=[N_BIG],
+            library="torch.dot")
+        log(f"time n={N_BIG} lognormal B12 dot_flat_cuda: {t_k:.4f} ms "
+            f"({16 * N_BIG / (t_k * 1e-3) / 1e9:.1f} GB/s), plain {t_p:.3f} ms,"
+            f" torch.dot {t_lib:.4f} ms [{smi}]")
+        rel, _ = sm.sum_flat_cuda(x, e, nwa_main)
+        pos = sm.frame_positions(nwa_main)
+        t_k = time_ms(lambda: rk.round_scaled_terms_cuda(
+            rel, pos, e, 1 - 32 * nwa_main), reps=7, inner=50)
+        t_p = time_ms(lambda: rk.round_scaled_terms_torch(
+            rel, pos, e, 1 - 32 * nwa_main), reps=3, inner=5)
+        t_empty = time_ms(lambda: torch.cuda._sleep(0), reps=7, inner=50)
+        out["round_scaled_terms_cuda"] = dict(
+            ms=t_k, plain_ms=t_p, bound_ms=t_empty,
+            bound_by="operations", library_ms=None, shape=[len(pos)],
+            library=None)
+        log(f"time B3 round_scaled_terms_cuda ({len(pos)} terms): "
+            f"{t_k:.4f} ms, plain {t_p:.3f} ms, empty launch "
+            f"(torch.cuda._sleep(0)) {t_empty:.4f} ms [{smi}]")
+
+        for dist, x_np in sums.items():
+            x = torch.from_numpy(x_np).cuda()
+            xt.exsum_bits(x)
+            route = _exsum_bits_mxu_auto.route
+            syncs = count_syncs(lambda: xt.exsum_bits(x))
+            t_pub = time_ms(lambda: xt.exsum_bits(x))
+            t_b2 = time_ms(lambda: sk.exsum_bits_cuda(x))
+            t_lib = time_ms(lambda: torch.sum(x))
+            log(f"time n={N_BIG} bench {dist} public xt.exsum_bits: "
+                f"{t_pub:.4f} ms, route {route}, {syncs} host syncs; B2b "
+                f"exsum_bits_cuda {t_b2:.4f} ms; torch.sum {t_lib:.4f} ms "
+                f"[{smi}]")
+        for dist, (a_np, b_np) in dots.items():
+            a = torch.from_numpy(a_np).cuda()
+            b = torch.from_numpy(b_np).cuda()
+            xt.exdot_bits(a, b)
+            route = _exdot_bits_mxu_auto.route
+            syncs = count_syncs(lambda: xt.exdot_bits(a, b))
+            t_pub = time_ms(lambda: xt.exdot_bits(a, b))
+            t_b4 = time_ms(lambda: dk.exdot_bits_cuda(a, b))
+            t_lib = time_ms(lambda: torch.dot(a, b))
+            log(f"time n={N_BIG} bench {dist} public xt.exdot_bits: "
+                f"{t_pub:.4f} ms, route {route}, {syncs} host syncs; B4b "
+                f"exdot_bits_cuda {t_b4:.4f} ms; torch.dot {t_lib:.4f} ms "
+                f"[{smi}]")
+
+        ladder_breakdown(xt, sums["lognormal"], dots["lognormal"], smi)
+
+        for lg in (16, 18, 20, 22):
+            n = 1 << lg
+            x = torch.from_numpy(xt.init_lognormal(n, 1.0, 2.0, seed=10)).cuda()
+            a = torch.from_numpy(xt.init_lognormal(n, 1.0, 2.0, seed=11)).cuda()
+            b = torch.from_numpy(xt.init_lognormal(n, 1.0, 2.0, seed=12)).cuda()
+            t_ls = time_ms(lambda: _exsum_bits_mxu_auto(x, True))
+            t_es = time_ms(lambda: sk.exsum_bits_cuda(x))
+            t_ld = time_ms(lambda: _exdot_bits_mxu_auto(a, b, True))
+            t_ed = time_ms(lambda: dk.exdot_bits_cuda(a, b))
+            log(f"time n=2^{lg} lognormal: sum ladder {t_ls:.4f} ms "
+                f"{_exsum_bits_mxu_auto.route} vs B2b {t_es:.4f} ms; dot "
+                f"ladder {t_ld:.4f} ms {_exdot_bits_mxu_auto.route} vs B4b "
+                f"{t_ed:.4f} ms [{smi}]")
     return out
 
 
@@ -1587,6 +2153,15 @@ TRSV_KERNELS = (
     ("trsv_lower_x_cuda", "exblas_tpu_torch/ops/kernels/csrc/trsv_kernel.cu",
      "exblas_tpu/ops/kernels/trsv_kernel.py:285"),
 )
+FAST_KERNELS = (
+    ("sum_flat_cuda", "exblas_tpu_torch/ops/kernels/csrc/sum_mxu.cu",
+     "exblas_tpu/ops/kernels/sum_mxu.py:232"),
+    ("dot_flat_cuda", "exblas_tpu_torch/ops/kernels/csrc/dot_mxu.cu",
+     "exblas_tpu/ops/kernels/dot_mxu.py:174"),
+    ("round_scaled_terms_cuda",
+     "exblas_tpu_torch/ops/kernels/csrc/round_terms.cu",
+     "exblas_tpu/ops/kernels/round_in_kernel.py:374"),
+)
 
 
 def main() -> None:
@@ -1596,6 +2171,7 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_build()
     errs = phase_kernels(xt)
+    errs.update(phase_fast_kernels(xt))
     launches = phase_public_api(xt)
     errs.update(phase_gemm_kernels(xt))
     bench = gemm_bench_data(xt, N_GEMM)
@@ -1616,6 +2192,7 @@ def main() -> None:
     for name, e in trsv_errs.items():
         errs[name] = max(errs[name], e)
     times = phase_timing(xt, smi)
+    fast_times = phase_fast_timing(xt, smi)
     gemm_times = phase_gemm_timing(xt, smi, bench)
     gemv_times = phase_gemv_timing(xt, smi, gemv_bench)
     trsv_times = phase_trsv_timing(xt, smi, trsv_bench)
@@ -1634,7 +2211,8 @@ def main() -> None:
             "launches": launches[name], "max_abs_err": errs[name],
             **gemm_times[name], "library": "torch.addmm"})
     for kernels, kernel_times in ((GEMV_KERNELS, gemv_times),
-                                  (TRSV_KERNELS, trsv_times)):
+                                  (TRSV_KERNELS, trsv_times),
+                                  (FAST_KERNELS, fast_times)):
         for name, src, rep in kernels:
             summary.append({
                 "name": name, "route": "cuda", "source": src,

@@ -28,7 +28,7 @@ __all__ = [
     "QNAN_BITS", "PINF_BITS", "NINF_BITS", "SIGN_BIT",
     "canonicalize_digits", "negate_digits", "ieee_encode_round",
     "round_digits_to_f64_bits", "round_superacc_to_f64_bits",
-    "apply_specials", "bits_to_float",
+    "apply_specials", "bits_to_float", "rel_limbs_to_abs_limbs",
 ]
 
 # Canonical special results, as int64 views of the binary64 patterns.
@@ -68,6 +68,42 @@ def negate_digits(digits):
         out.append(t & LIMB_MASK)
         borrow = t >> LIMB_BITS
     return torch.stack(out, -1).to(digits.dtype)
+
+
+def rel_limbs_to_abs_limbs(rel, p0, fmt: AccFormat):
+    """Shift RELATIVE int64 limbs into an ABSOLUTE accumulator frame.
+
+    rel: (..., Lr) redundant limbs, one exact value per leading index; rel
+    bit 0 lands at absolute bit ``p0`` (an int or an int tensor of shape
+    (...), ``fmt.offset_bits`` included).  Returns (..., fmt.n_limbs)
+    int64 absolute limbs, the frame of the exact accumulators.  Port of
+    ``exblas_tpu/core/rounding.py:95-125``: canonicalize, take sign and
+    magnitude, and shift each digit to its absolute limb.
+
+    Precondition (the callers' windows guarantee it): every value is an
+    integer multiple of absolute bit 0, so canonical digits wholly below
+    bit 0 are zero and at most one digit straddles it, which folds into
+    limb 0 by an exact right shift.
+    """
+    digits, negative = canonicalize_digits(rel)
+    mag = torch.where(negative[..., None], negate_digits(digits),
+                      digits).to(torch.int64)
+    sgn = torch.where(negative, -1, 1)
+    p0 = torch.as_tensor(p0, dtype=torch.int64, device=rel.device)
+    q0 = torch.div(p0, LIMB_BITS, rounding_mode="floor")
+    rb = p0 - q0 * LIMB_BITS
+    n_limbs = fmt.n_limbs
+    out = torch.zeros(rel.shape[:-1] + (n_limbs,), dtype=torch.int64,
+                      device=rel.device)
+    for j in range(mag.shape[-1]):
+        q = (q0 + j).expand(rel.shape[:-1])
+        vj = (mag[..., j] << rb) * sgn                  # |vj| < 2^40
+        sh = (-q).clamp(min=0) * LIMB_BITS
+        vj = torch.where(sh > LIMB_BITS, 0, vj >> sh.clamp(max=LIMB_BITS))
+        vj = torch.where(q < n_limbs, vj, 0)
+        out.scatter_add_(-1, q.clamp(0, n_limbs - 1)[..., None],
+                         vj[..., None])
+    return out
 
 
 def ieee_encode_round(sign, e_msb, m55, sticky_below):

@@ -12,11 +12,16 @@ go to the current CUDA device, or to ``device`` when the caller names one
 
 Implementations ("impl"):
   * ``"torch"`` -- the plain PyTorch integer path (any device);
-  * ``"cuda"``  -- the CUDA kernels (``ops/kernels/sum_kernel.py``);
+  * ``"cuda"``  -- the CUDA kernels (``ops/kernels/``);
   * ``None``    -- follows the device: CUDA tensors take the kernels, CPU
                    tensors the plain path.
 ``"cuda"`` on a CPU tensor raises; ``"torch"`` on a CUDA tensor runs the
 plain path on the card, as asked.
+
+Routes, as in the JAX package (``exblas_tpu/ops/exsum.py``): for
+``_SUM_MXU_MIN <= n <= MAX_N_MXU`` the anchored-window ladder
+(:func:`_exsum_bits_mxu_auto`, kernels B11 and B3), otherwise the exact
+kernel B2 (``sum_kernel.py``); under both implementations alike.
 """
 
 from __future__ import annotations
@@ -24,11 +29,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.accumulator import to_int32_limbs
 from ..core.rounding import bits_to_float
-from ..core.types import Superacc
-from .kernels import sum_kernel
+from ..core.types import N_SPECIAL, SUM_FORMAT, Superacc
+from .kernels import sum_kernel, sum_mxu
+from .kernels.sum_mxu import (_ANCHOR_SLACK, MAX_N_MXU, device_anchor,
+                              exact_anchor, resolve_anchor, sample_anchor)
 
 __all__ = ["exsum", "exsum_acc", "exsum_bits"]
+
+# The JAX package's threshold for the anchored ladder (``exsum.py:46-49``),
+# kept so that both packages route alike; PERF.md records the ladder
+# against the exact kernel on this card around it.
+_SUM_MXU_MIN = 1 << 20
+# The ladder's windows: nwa words of 32 bits, the widest run with the
+# anchor's slack undone, so its boundary carries the slack.
+_SUM_TIERS = ((96, 3, 0), (128, 4, 0), (160 + _ANCHOR_SLACK, 5, _ANCHOR_SLACK))
 
 
 def _validate_fpe(fpe: int, name: str = "exsum"):
@@ -91,13 +107,79 @@ def as_f64_vector(x, inc: int, offset: int,
     return x.contiguous()
 
 
+def _use_ladder(n: int) -> bool:
+    return _SUM_MXU_MIN <= n <= MAX_N_MXU
+
+
+def _sum_ladder(x: torch.Tensor, fast, exact):
+    """The JAX package's three tiers (``exsum.py:52-116``), branched on the
+    host: route on the sampled (or, in the guard band, exact) spread to
+    the narrowest window that fits it, or straight to the exact kernel;
+    run the window kernel at the sampled anchor; if it flags an uncovered
+    element or a special, retry the widest window at the exact anchor;
+    if that flags too, run the exact kernel.  ``fast(x, anchor, nwa)``
+    gives (result, bad); returns (result, the tiers taken in order).
+    Host synchronizations: one for the sampled spread (two in the guard
+    band), one per window pass for its flag."""
+    e_est, spread = resolve_anchor(x, *sample_anchor(x),
+                                   [b for b, _, _ in _SUM_TIERS])
+    for bound, nwa, deslack in _SUM_TIERS:
+        if spread <= bound:
+            break
+    else:
+        return exact(x), ("exact",)
+    out, bad = fast(x, device_anchor(e_est - deslack, x.device), nwa)
+    if not bool(bad):
+        return out, (f"nwa{nwa}",)
+    out, bad = fast(x, exact_anchor(x), 5)
+    if not bool(bad):
+        return out, (f"nwa{nwa}", "retry")
+    return exact(x), (f"nwa{nwa}", "retry", "exact")
+
+
+def _exsum_bits_mxu_auto(x: torch.Tensor, kernels: bool) -> torch.Tensor:
+    """Bits through the anchored ladder (B11 + B3 in each window tier, B2
+    for the exact tier), or their plain versions.  The tiers taken are in
+    ``_exsum_bits_mxu_auto.route``."""
+    out, _exsum_bits_mxu_auto.route = _sum_ladder(
+        x, lambda v, e, nwa: sum_mxu.sum_bits_mxu(v, e, nwa, kernels),
+        sum_kernel.exsum_bits_cuda if kernels
+        else sum_kernel.exsum_bits_torch)
+    return out
+
+
+def _exsum_acc_mxu_auto(x: torch.Tensor, kernels: bool) -> Superacc:
+    """Superacc twin of :func:`_exsum_bits_mxu_auto` (same tiers): the
+    window sum shifted into absolute SUM_FORMAT limbs with zero special
+    counts (a special always ends in the exact kernel, which counts it).
+    The tiers taken are in ``_exsum_acc_mxu_auto.route``."""
+    def fast(v, e, nwa):
+        limbs, bad = sum_mxu.sum_acc_limbs_mxu(v, e, nwa, kernels)
+        return Superacc(limbs=to_int32_limbs(limbs),
+                        special=torch.zeros(N_SPECIAL, dtype=torch.int32,
+                                            device=v.device),
+                        fmt=SUM_FORMAT), bad
+
+    out, _exsum_acc_mxu_auto.route = _sum_ladder(
+        x, fast, sum_kernel.exsum_acc_cuda if kernels
+        else sum_kernel.exsum_acc_torch)
+    return out
+
+
+_exsum_bits_mxu_auto.route = ()
+_exsum_acc_mxu_auto.route = ()
+
+
 def exsum_acc(x, inca: int = 1, offset: int = 0, fpe: int = 2,
               early_exit: bool = False, impl: str | None = None,
               device=None) -> Superacc:
     """Exact sum into a Superacc (mergeable, serializable)."""
     _validate_fpe(fpe)
     x = as_f64_vector(x, inca, offset, target_device(x, device=device))
-    if resolve_impl(impl, x.device) == "cuda":
+    kernels = resolve_impl(impl, x.device) == "cuda"
+    if _use_ladder(x.numel()):
+        return _exsum_acc_mxu_auto(x, kernels)
+    if kernels:
         return sum_kernel.exsum_acc_cuda(x)
     return sum_kernel.exsum_acc_torch(x)
 
@@ -109,7 +191,10 @@ def exsum_bits(x, inca: int = 1, offset: int = 0, fpe: int = 2,
     device."""
     _validate_fpe(fpe)
     x = as_f64_vector(x, inca, offset, target_device(x, device=device))
-    if resolve_impl(impl, x.device) == "cuda":
+    kernels = resolve_impl(impl, x.device) == "cuda"
+    if _use_ladder(x.numel()):
+        return _exsum_bits_mxu_auto(x, kernels)
+    if kernels:
         return sum_kernel.exsum_bits_cuda(x)
     return sum_kernel.exsum_bits_torch(x)
 

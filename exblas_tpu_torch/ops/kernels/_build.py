@@ -47,6 +47,9 @@ SIGNATURES = {
     "gemv_mxu_classes_cuda": (_P, _P, _P, _N, _N, _N, _I, _I, _N, _P, _P),
     "gemv_mxu_round_cuda": (_P, _I, _P, _P, _P, _N, _I, _N, _I, _I, _P, _P),
     "trsv_lower_x_cuda": (_P, _P, _N, _I, _I, _I, _P, _P, _P, _P),
+    "sum_flat_cuda": (_P, _N, _P, _I, _P, _P),
+    "dot_flat_cuda": (_P, _P, _N, _P, _P, _P, _P),
+    "round_terms_cuda": (_P, _P, _I, _I, _P, _I, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -183,6 +183,23 @@ __device__ __forceinline__ void add_scaled(long long* limbs, long long v,
   limbs[q + 2] += w >> (2 * kLimbBits);
 }
 
+// Kernel B3's body: the correctly rounded binary64 bits of
+// sum_t vals[t] * 2^(pos[t] + e) for t < T int64 terms of any size, with
+// pos[t] >= 0.  Each term's 32-bit halves go through add_scaled into nl
+// zeroed limbs (nl > (max pos + 72) / 20 + 1 holds 128 terms of 2^63 and
+// the sign), then round_limbs rounds them once (an exact zero is +0.0).
+__device__ __forceinline__ unsigned long long round_scaled_terms(
+    const long long* vals, const int* pos, int t, long long* limbs, int nl,
+    int e) {
+  for (int l = 0; l < nl; ++l) limbs[l] = 0;
+  for (int i = 0; i < t; ++i) {
+    const long long v = vals[i];
+    add_scaled(limbs, v & 0xFFFFFFFFLL, pos[i]);  // below 2^32
+    add_scaled(limbs, v >> 32, pos[i] + 32);       // |v >> 32| <= 2^31
+  }
+  return round_limbs(limbs, 0, nl - 1, nl, -e);
+}
+
 __device__ __forceinline__ unsigned long long apply_specials(
     unsigned long long bits, long long nan_c, long long pinf_c,
     long long ninf_c) {

@@ -43,9 +43,9 @@ from __future__ import annotations
 
 import torch
 
-from ...core.rounding import (canonicalize_digits, negate_digits,
+from ...core.rounding import (canonicalize_digits, rel_limbs_to_abs_limbs,
                               round_digits_to_f64_bits)
-from ...core.types import DOT_FORMAT, L_DOT, LIMB_BITS, LIMB_MASK, N_SPECIAL
+from ...core.types import DOT_FORMAT, LIMB_BITS, LIMB_MASK, N_SPECIAL
 from ..exgemv import _GEMV_RUNGS, _apply_beta_rows, round_rows
 from . import _build
 from ._build import ptr, stream_of
@@ -202,33 +202,6 @@ def _rel_limbs(cls, r0: int):
     return limbs
 
 
-def rel_to_abs_rows(limbs, e_base, r0: int):
-    """Relative row accumulators (bit 0 at 2^(e_base - r0)) -> absolute
-    DOT_FORMAT limbs (m, L), exactly.  The port of the JAX epilogue
-    (``gemv_mxu.py:714-755``): canonicalize, take sign and magnitude, and
-    shift each digit to its absolute limb.  A deep-subnormal row may put
-    digits below absolute bit 0; every row value is a multiple of 2^-2148
-    (each product is), so those digits are zero but for at most one that
-    straddles bit 0, which folds into limb 0 by an exact right shift."""
-    digits, negative = canonicalize_digits(limbs)
-    mag = torch.where(negative[:, None], negate_digits(digits),
-                      digits).to(torch.int64)
-    sgn = torch.where(negative, -1, 1)
-    p0 = e_base - r0 + DOT_FORMAT.offset_bits
-    q0 = torch.div(p0, LIMB_BITS, rounding_mode="floor")
-    rb = p0 - q0 * LIMB_BITS
-    out = torch.zeros((limbs.shape[0], L_DOT), dtype=torch.int64,
-                      device=limbs.device)
-    for j in range(mag.shape[1]):
-        q = q0 + j
-        vj = (mag[:, j] << rb) * sgn                     # |vj| < 2^39
-        sh = (-q).clamp(min=0) * LIMB_BITS
-        vj = torch.where(sh > LIMB_BITS, 0, vj >> sh.clamp(max=LIMB_BITS))
-        vj = torch.where(q < L_DOT, vj, 0)
-        out.scatter_add_(1, q.clamp(0, L_DOT - 1)[:, None], vj[:, None])
-    return out
-
-
 def _check_rung(nwa: int, nwz: int, name: str) -> None:
     if (nwa, nwz) not in _GEMV_RUNGS:
         raise ValueError(f"{name}: no rung ({nwa}, {nwz}); the rungs are "
@@ -248,7 +221,10 @@ def gemv_bits_mxu_torch(a_bits, z_bits, ea, f, y_bits, beta_bits: int,
         digits, negative = canonicalize_digits(limbs)
         return round_digits_to_f64_bits(digits, negative, DOT_FORMAT,
                                         offset_bits=r0 - e_base)
-    limbs = rel_to_abs_rows(limbs, e_base, r0)
+    # every row value is a multiple of 2^-2148 (each product is), so the
+    # shift into the absolute DOT_FORMAT frame is exact
+    limbs = rel_limbs_to_abs_limbs(
+        limbs, e_base - r0 + DOT_FORMAT.offset_bits, DOT_FORMAT)
     special = torch.zeros((limbs.shape[0], N_SPECIAL), dtype=torch.int64,
                           device=limbs.device)
     limbs, special = _apply_beta_rows(limbs, special, beta_bits, y_bits,

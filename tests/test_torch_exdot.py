@@ -204,4 +204,5 @@ def test_dot_baseline_is_native():
     from exblas_tpu_torch.baselines import dot_baseline
 
     a, b = CASES[3][1](100)
-    assert dot_baseline(a, b) == float(torch.dot(_t(a), _t(b)))
+    assert dot_baseline(_t(a), _t(b)) == float(torch.dot(_t(a), _t(b)))
+    assert dot_baseline(a, b, device="cpu") == float(torch.dot(_t(a), _t(b)))

@@ -222,7 +222,8 @@ def test_sum_baseline_is_native():
     from exblas_tpu_torch.baselines import sum_baseline
 
     x = xt.init_fpuniform(100, 10, 0, seed=18)
-    assert sum_baseline(x) == float(torch.sum(_t(x)))
+    assert sum_baseline(_t(x)) == float(torch.sum(_t(x)))
+    assert sum_baseline(x, device="cpu") == float(torch.sum(_t(x)))
 
 
 def test_cuda_wrapper_refuses_cpu_tensor():

@@ -94,3 +94,86 @@ def pallas_interpret(entry: str, *arrays, rows: int = 8):
         planes += [b.hi, b.lo]
     with pltpu.force_tpu_interpret_mode():
         return fn(*planes, rows=rows)
+
+
+# --- the anchored-window ladders' routes, from the JAX package's helpers ---
+#
+# The JAX ladders branch on the device, so the tier they take is not
+# visible.  These replay their decisions (exsum.py:52-116, exdot.py:44-130)
+# with the JAX package's own routing helpers and its per-element coverage
+# check (gemv_mxu._slice_byte_words, plain jnp: no Pallas kernel runs).
+
+def _jax_flag(bits, anchor: int, nwa: int) -> bool:
+    import jax.numpy as jnp
+
+    return bool(_jax_helpers()[1](bits.hi, bits.lo, jnp.int32(anchor), nwa))
+
+
+def _jax_resolved(bits, boundaries):
+    """(resolved anchor, resolved spread, exact anchor) as ints."""
+    return tuple(int(v) for v in _jax_helpers()[0](bits.hi, boundaries))
+
+
+def _jax_helpers():
+    """The JAX routing helpers and coverage check, each jitted once (one
+    compile per shape instead of one per eager operation)."""
+    if not _JAX_HELPERS:
+        import jax
+        import jax.numpy as jnp
+        from exblas_tpu.ops.kernels.gemv_mxu import _slice_byte_words
+        from exblas_tpu.ops.kernels.sum_mxu import (exact_anchor,
+                                                    resolve_anchor,
+                                                    sample_anchor)
+
+        def route(hi, boundaries):
+            e, s = resolve_anchor(hi, *sample_anchor(hi), boundaries)
+            return e, s, exact_anchor(hi)
+
+        def flag(hi, lo, anchor, nwa):
+            return jnp.any(_slice_byte_words(hi, lo, anchor, nwa,
+                                             check=True)[2])
+
+        _JAX_HELPERS.extend([jax.jit(route, static_argnums=1),
+                             jax.jit(flag, static_argnums=3)])
+    return _JAX_HELPERS
+
+
+_JAX_HELPERS = []
+
+
+def jax_sum_route(x) -> tuple:
+    """The tiers JAX's ``_exsum_bits_mxu_auto`` takes on ``x``, in the
+    port's names (``_exsum_bits_mxu_auto.route``)."""
+    b = split_f64(np.asarray(x, np.float64))
+    e, s, ex = _jax_resolved(b, (96, 128, 168))
+    for bound, nwa, deslack in ((96, 3, 0), (128, 4, 0), (168, 5, 8)):
+        if s <= bound:
+            break
+    else:
+        return ("exact",)
+    if not _jax_flag(b, e - deslack, nwa):
+        return (f"nwa{nwa}",)
+    if not _jax_flag(b, ex, 5):
+        return (f"nwa{nwa}", "retry")
+    return (f"nwa{nwa}", "retry", "exact")
+
+
+def jax_dot_route(a, b) -> tuple:
+    """The tiers JAX's ``_exdot_bits_mxu_auto`` takes on (a, b), in the
+    port's names; the window pass JAX runs and discards when a spread is
+    over every window is left out, as the port skips it."""
+    ba = split_f64(np.asarray(a, np.float64))
+    bb = split_f64(np.asarray(b, np.float64))
+    ea, sa, xa = _jax_resolved(ba, (168,))
+    eb, sb, xb_ = _jax_resolved(bb, (168,))
+    if sa > 168 or sb > 168:
+        return ("exact",)
+    ea -= 8 if sa > 160 else 0
+    eb -= 8 if sb > 160 else 0
+    if not (_jax_flag(ba, ea, 5) or _jax_flag(bb, eb, 5)):
+        return ("fast",)
+    if sa > 160 or sb > 160:
+        return ("fast", "exact")
+    if not (_jax_flag(ba, xa, 5) or _jax_flag(bb, xb_, 5)):
+        return ("fast", "retry")
+    return ("fast", "retry", "exact")
