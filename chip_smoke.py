@@ -30,11 +30,15 @@ slice of the port:
   partition; and checks that this path launched all seven kernels;
 * ExGEMM: holds the exact kernel and the int8 slice kernel bit for bit
   against their plain versions on five shapes, ten distributions, every
-  beta mode, both transposes and four rungs; drives ``exgemm`` at n = 4096
-  on the benchmark data (rung (8, 8), the slice kernel), on data too wide
-  for any rung (the exact kernel) and on data with specials (the
-  override) against exact host values, the exact kernel and a
-  permutation of k, and checks that this path launched both kernels;
+  beta mode, both transposes and four rungs, and the exact kernel also on
+  600-binade pairs of ragged shapes (k = 1 included) in every beta mode,
+  on signed data whose sums change sign (600 binades, tiny zero-mean
+  products, alternating signs) and on a tall shape of more than 2^20 rows;
+  drives ``exgemm`` at n = 4096 on the benchmark data (rung (8, 8), the
+  slice kernel), on data too wide for any rung (the exact kernel) and on
+  data with specials (the override) against exact host values, the exact
+  kernel and a permutation of k, and checks that this path launched both
+  kernels;
 * ExGEMV: holds the row kernel B7, the row analysis B8 and the byte-plane
   kernel B9 bit for bit against their plain versions on five shapes,
   twelve distributions, every beta mode, both transposes and rungs (2, 2),
@@ -45,20 +49,30 @@ slice of the port:
   permutation of k, on a 600-binade A (B7), on data with specials (the
   override), with beta general and with trans "T", and checks that this
   path launched all three kernels;
-* ExTRSV: holds the blocked solve B10, at block heights 64 and 128,
-  bit for bit against its plain version at n from 1 to 1000 on eight
-  distributions (specials, a zero diagonal, NaN in the triangle that is
-  never read, subnormal x, overflow), unit and non-unit; drives ``extrsv``
-  at n = 8192 on the TRSV benchmark's data (which overflows past row 1593)
-  and on its bounded data (against exact host rows, the flipped upper and
-  the transposed solves, and the plain version at n = 2048), and checks
-  that this path launched B10;
+* ExTRSV: holds the exact solve B10 (one persistent launch a solve), at
+  block heights 64 and 128, bit for bit against its plain version at n
+  from 1 to 1000 on eight distributions (specials, a zero diagonal, NaN
+  in the triangle that is never read, subnormal x, overflow), unit and
+  non-unit, and the public ``extrsv`` in all four (uplo, trans) forms at
+  n = 129 and 300 against the public entry on the plain path; drives
+  ``extrsv`` at n = 8192 on the TRSV benchmark's data (which overflows
+  past row 1593) and on its bounded data (against exact host rows, the
+  flipped upper and the transposed solves, and the plain version at
+  n = 2048), and checks that this path launched B10 once a solve;
 
 then times kernels, plain versions, the public ladders (with their host
-synchronizations) and the native float64 controls with CUDA events and
-prints one JSON summary line per the contract below.  Any
+synchronizations) and the native float64 controls with CUDA events --
+B5 also on a 600-binade pair no rung covers and on signed data, B10 also
+split into the solver warp's phases a step beside an estimate of its
+chain -- and prints one JSON summary line per the contract below.  Any
 failure raises, so the script exits non-zero without the final line.  It
 also exits non-zero when no CUDA device is present.
+
+    python3 chip_smoke.py --only gemm_kernels,trsv_timing
+
+runs the build and the named phases alone (``PHASES``; the data each
+needs is made as in the full run) and prints no summary: the quick check
+of one kernel after a change.
 
 Last line: {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": 1}}.  The line before it: {"kernels": [...]}, one per kernel.
@@ -976,6 +990,12 @@ GEMM_SHAPES = ((1, 1, 1), (5, 7, 9), (17, 130, 33), (128, 256, 128),
 GEMM_DISTS = ("narrow", "mixed", "wide", "very_wide", "subnormal",
               "cancellation", "nan", "inf", "inf_times_zero", "both_inf")
 GEMM_RUNGS = ((8, 8), (8, 12), (16, 16), (40, 40))
+# B5's tile is 16 x 16 and its k chunk 32: ragged shapes, k = 1 included
+B5_WIDE_SHAPES = ((33, 1, 47), (40, 65, 31), (70, 300, 50))
+# signed data whose sums change sign, which B5's biased words must absorb
+B5_SIGNED = ("signed600", "tiny", "alternating")
+# more row tiles than a grid's y extent (65535) may hold
+B5_TALL = ((1 << 20) + 17, 3, 2)
 BETA_MODES = (("one", 1.0), ("general", -0.75), ("zero", 0.0))
 TRANS = ("NN", "TN", "NT", "TT")
 N_GEMM = 4096
@@ -1035,6 +1055,25 @@ def gemm_case(dist: str, m: int, k: int, n: int, seed: int):
     return a, b, c
 
 
+def b5_signed_pair(dist: str, m: int, k: int, n: int, seed: int):
+    """(z (m, k), b (k, n)) of signed data whose exact sums change sign:
+    600 binades each way, tiny zero-mean values (products near 2^-2110,
+    in the accumulator's lowest word), or z[i, k] = -(-1)^k t against
+    b = t, t = 2^-1060, so that every product takes the sum across
+    zero."""
+    if dist == "signed600":
+        return (rand_mat(m, k, -300, 300, seed),
+                rand_mat(k, n, -300, 300, seed + 1))
+    if dist == "tiny":
+        return (rand_mat(m, k, -1060, -1050, seed),
+                rand_mat(k, n, -1060, -1050, seed + 1))
+    if dist == "alternating":
+        t = 2.0 ** -1060
+        sign = np.where(np.arange(k) % 2 == 0, -1.0, 1.0)
+        return np.tile(sign * t, (m, 1)), np.full((k, n), t)
+    raise ValueError(dist)
+
+
 def cuda_bits(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float64)).cuda().view(
         torch.int64)
@@ -1054,7 +1093,8 @@ def mismatch_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def phase_gemm_kernels(xt) -> dict:
     """B5 and B6 against their plain versions on the card, and the public
     entry on the kernels against the public entry on the plain path."""
-    from exblas_tpu_torch.ops.exgemm import _c_cover_bounds, _mxu_c_cover
+    from exblas_tpu_torch.ops.exgemm import (_c_cover_bounds, _mxu_c_cover,
+                                             plan_gemm)
     from exblas_tpu_torch.ops.kernels import gemm_kernel as gk
     from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
 
@@ -1136,13 +1176,62 @@ def phase_gemm_kernels(xt) -> dict:
                 failures.append(f"public {m}x{k}x{n} {dist} {tr}")
             line.append(f"public {'==' if torch.equal(pk, pp) else '!='}")
             log(" ".join(line))
+    n_wide = 0
+    for si, (m, k, n) in enumerate(B5_WIDE_SHAPES):
+        # a 600-binade pair: no rung covers it, so only B5 ever takes it
+        a_np = xt.init_fpuniform_matrix(m, k, 600, -300, seed=si + 61)
+        b_np = xt.init_fpuniform_matrix(k, n, 600, -300, seed=si + 62)
+        c_np = rand_mat(m, n, -10, 10, SEED + 63 + si)
+        za, zb, zc = cuda_bits(a_np), cuda_bits(b_np), cuda_bits(c_np)
+        for mode, beta in BETA_MODES:
+            bb = s64(beta)
+            # one element a row is no spread: k = 1 may take a rung
+            if k > 1 and plan_gemm(za, zb, zc, bb, mode).rung is not None:
+                failures.append(f"600-binade {m}x{k}x{n} {mode} took a rung")
+            e = mismatch_err(gk.gemm_bits_cuda(za, zb, zc, bb, mode),
+                             gk.gemm_bits_torch(za, zb, zc, bb, mode))
+            errs["gemm_bits_cuda"] = max(errs["gemm_bits_cuda"], e)
+            if e != 0:
+                failures.append(f"B5 600-binade {m}x{k}x{n} {mode}")
+            n_wide += 1
+    for si, (m, k, n) in enumerate(B5_WIDE_SHAPES):
+        for di, dist in enumerate(B5_SIGNED):
+            a_np, b_np = b5_signed_pair(dist, m, k, n, SEED + 70 + 3 * si
+                                        + 11 * di)
+            c_np = rand_mat(m, n, -10, 10, SEED + 64 + si)
+            za, zb, zc = cuda_bits(a_np), cuda_bits(b_np), cuda_bits(c_np)
+            for mode, beta in BETA_MODES:
+                bb = s64(beta)
+                e = mismatch_err(gk.gemm_bits_cuda(za, zb, zc, bb, mode),
+                                 gk.gemm_bits_torch(za, zb, zc, bb, mode))
+                errs["gemm_bits_cuda"] = max(errs["gemm_bits_cuda"], e)
+                if e != 0:
+                    failures.append(f"B5 {dist} {m}x{k}x{n} {mode}")
+                n_wide += 1
+    # a tall shape: its row tiles exceed a grid's y extent; the plain
+    # version takes it in row turns (a row of C needs its row of z alone)
+    m, k, n = B5_TALL
+    a_np, b_np, c_np = gemm_case("wide", m, k, n, SEED + 90)
+    za, zb, zc = cuda_bits(a_np), cuda_bits(b_np), cuda_bits(c_np)
+    bb = s64(-0.75)
+    ek = gk.gemm_bits_cuda(za, zb, zc, bb, "general")
+    for r in range(0, m, 1 << 18):
+        e = mismatch_err(ek[r:r + (1 << 18)], gk.gemm_bits_torch(
+            za[r:r + (1 << 18)], zb, zc[r:r + (1 << 18)], bb, "general"))
+        errs["gemm_bits_cuda"] = max(errs["gemm_bits_cuda"], e)
+        if e != 0:
+            failures.append(f"B5 tall {m}x{k}x{n} rows {r}..")
+    del za, zb, zc, ek
     torch.cuda.synchronize()
     if failures:
         raise AssertionError(f"GEMM kernel != plain version: {failures}")
     log(f"GEMM kernels vs plain versions: bit-equal (tolerance 0) on "
         f"{len(GEMM_SHAPES)} shapes x {len(GEMM_DISTS)} distributions, "
         f"{n_rungs} slice-kernel rung runs ({n_turns} of them again in "
-        f"turns of {gm.ROW_TILE} rows)")
+        f"turns of {gm.ROW_TILE} rows); B5 also on {n_wide} 600-binade "
+        f"and signed {B5_SIGNED} cases (shapes {B5_WIDE_SHAPES}, every "
+        f"beta mode; no rung taken by 600 binades where k > 1) and at "
+        f"{B5_TALL} (m x k x n, {-(-B5_TALL[0] // 16)} row tiles)")
     return errs
 
 
@@ -1271,8 +1360,9 @@ def phase_gemm_public(xt, bench) -> tuple[dict, dict]:
 def phase_gemm_timing(xt, smi: str, bench) -> dict:
     """n = 4096, beta = 1, the benchmark data: the plan, the slice kernel
     (and its digit, class and rounding launches apart), the public entry,
-    the exact kernel (and its rounding apart, at k = 32) and the float64
-    control; the plain versions at (257, 1000, 129)."""
+    the exact kernel (also on a 600-binade pair no rung covers, and its
+    rounding apart, at k = 32) and the float64 control; the plain versions
+    at (257, 1000, 129)."""
     from exblas_tpu_torch.ops.kernels import _build
     from exblas_tpu_torch.ops.kernels import gemm_kernel as gk
     from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
@@ -1326,6 +1416,29 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
                                            c=c), reps=3, inner=1)
     t_b5 = time_ms(lambda: gk.gemm_bits_cuda(ab, bbits, cb, ONE_BITS, "one"),
                    reps=2, inner=1)
+    # B5 on data of other kinds, with the bench data's c: the 600-binade
+    # pair of bench.py's generator (all positive), the signed pairs of
+    # b5_signed_pair, and a 2000-binade pair of the same generator, whose
+    # exponents past 1023 make about half of its elements +Inf
+    b5_data = {"600binade": (
+        xt.init_fpuniform_matrix(n, n, 600, -300, seed=11),
+        xt.init_fpuniform_matrix(n, n, 600, -300, seed=12))}
+    for di, dist in enumerate(B5_SIGNED):
+        b5_data[dist] = b5_signed_pair(dist, n, n, n, SEED + 80 + 2 * di)
+    with np.errstate(over="ignore"):
+        b5_data["2000binade"] = (
+            xt.init_fpuniform_matrix(n, n, 2000, -1000, seed=13),
+            xt.init_fpuniform_matrix(n, n, 2000, -1000, seed=14))
+    t_b5_data = {}
+    for name, (wa_np, wb_np) in b5_data.items():
+        wa, wb = cuda_bits(wa_np), cuda_bits(wb_np)
+        if name == "600binade" and plan_gemm(wa, wb, cb, ONE_BITS,
+                                             "one").rung is not None:
+            raise AssertionError("the 600-binade pair found a rung")
+        t_b5_data[name] = time_ms(lambda: gk.gemm_bits_cuda(
+            wa, wb, cb, ONE_BITS, "one"), reps=2, inner=1)
+        del wa, wb
+    del b5_data
     a32, b32 = ab[:, :32].contiguous(), bbits[:32, :].contiguous()
     t_b5_k32 = time_ms(lambda: gk.gemm_bits_cuda(a32, b32, cb, ONE_BITS,
                                                  "one"), reps=3, inner=1)
@@ -1339,8 +1452,10 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
     log(f"  plan (analysis, coverage, special flags, one host sync): "
         f"{t_plan:.3f} ms")
     log(f"  public xt.exgemm_bits: {rate(t_pub)}")
-    log(f"  B5 gemm_bits_cuda: {rate(t_b5)}; at k=32 (zeroing and rounding "
-        f"16.7M elements, 32 products each): {t_b5_k32:.3f} ms")
+    log(f"  B5 gemm_bits_cuda: {rate(t_b5)}; at k=32 (setting up and "
+        f"rounding 16.7M elements, 32 products each): {t_b5_k32:.3f} ms")
+    for name, t in t_b5_data.items():
+        log(f"  B5 gemm_bits_cuda on {name} data: {rate(t)}")
     log(f"  float64 control torch.addmm(c, a, b): {rate(t_lib)}")
 
     # the plain versions, at a shape where they finish in seconds
@@ -1369,7 +1484,8 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
         f"bytes)")
     shape = [n, n, n]
     out["gemm_bits_cuda"] = dict(
-        ms=t_b5, plain_ms=t_p5, bound_ms=max(b5_issue, b5_bytes),
+        ms=t_b5, ms_by_data=t_b5_data, plain_ms=t_p5,
+        bound_ms=max(b5_issue, b5_bytes),
         bound_by="operations" if b5_issue >= b5_bytes else "bytes",
         library_ms=t_lib, shape=shape, plain_shape=[pm, pk, pn])
     out["gemm_bits_mxu_cuda"] = dict(
@@ -1822,6 +1938,9 @@ TRSV_LARGE = {300: ("fpuniform600", "zero_diag", "overflow"),
 # These act through the diagonal, so they run non-unit only.
 TRSV_NON_UNIT = ("subnormal", "zero_diag", "overflow")
 TRSV_BLOCKS = (64, 128)
+# sizes at which every (uplo, trans) form of the public entry is held
+# against the public entry on the plain path (on the CPU)
+TRSV_FORMS_N = (129, 300)
 N_TRSV = 8192
 N_TRSV_PLAIN = 2048
 QNAN_PAYLOAD = float(np.array([0xFFF0000000000123], np.uint64).view(
@@ -1893,6 +2012,26 @@ def phase_trsv_kernels(xt) -> dict:
                 line.append(f"masked {'==' if same else '!='}")
                 if not same:
                     failures.append(f"B10 n={n} reads the ignored triangle")
+            if n in TRSV_FORMS_N:  # every (uplo, trans) of the public entry
+                # op(A) is T for L/N on a and U/T on a^T, T^T for L/T on a
+                # and U/N on a^T; the L/T plain solve runs on the CPU
+                diag = "U" if unit else "N"
+                at = np.ascontiguousarray(a_np.T)
+                forms = {}
+                for uplo, trans, m_np in (("L", "N", a_np), ("L", "T", a_np),
+                                          ("U", "N", at), ("U", "T", at)):
+                    forms[uplo + trans] = xt.extrsv_bits(
+                        uplo, trans, diag, cuda_bits(m_np).view(torch.float64),
+                        bb.view(torch.float64)).cpu()
+                plain_lt = xt.extrsv_bits("L", "T", diag, torch.from_numpy(
+                    a_np), torch.from_numpy(b_np.copy()))
+                same = (torch.equal(forms["LN"], xp)
+                        and torch.equal(forms["UT"], xp)
+                        and torch.equal(forms["LT"], plain_lt)
+                        and torch.equal(forms["UN"], plain_lt))
+                line.append(f"public L/N U/T L/T U/N {'==' if same else '!='}")
+                if not same:
+                    failures.append(f"public forms n={n} {dist}")
             xf = xp.view(torch.float64)
             n_nan = int(torch.isnan(xf).sum())
             if n_nan and not bool((xp[torch.isnan(xf)]
@@ -2001,7 +2140,7 @@ def phase_trsv_public(xt, bench) -> tuple[dict, dict]:
             torch.float64)):
         raise AssertionError(f"n={m}: B10 != plain version or the leading "
                              f"rows of the n={n} solve")
-    # B7 as B10's last panel runs it: T's rows read in place, x negated
+    # B7 with a row stride and x negated: T's last rows read in place
     base = n - tk.B
     panel = t.view(torch.int64)[base:, :base]
     xb = x.view(torch.int64)[:base]
@@ -2016,18 +2155,17 @@ def phase_trsv_public(xt, bench) -> tuple[dict, dict]:
         "the U/N solve of the flipped system and to the U/T solve of T^T; "
         f"64 finite bench rows exact too; n={m}: bit-equal to the plain "
         f"version ({t_plain:.1f} s on the CPU) and to the leading rows; B7 "
-        f"on the last panel (rows {base}.., row stride {n}, -x) bit-equal "
+        f"on T's rows {base}.. in place (row stride {n}, -x) bit-equal "
         "to its plain version; numpy input ran on the card")
     return launches, errs
 
 
 def phase_trsv_timing(xt, smi: str, bench) -> dict:
-    """n = 8192: B10 (both block heights) and its panel and diagonal
-    parts, the public entry (L/N, and U/T with its copy of T) and the
+    """n = 8192: B10 (both block heights) and the solver warp's step
+    split, the public entry (L/N, and U/T with its copy of T) and the
     float64 control on the bounded data; B10 on the benchmark's
-    overflowing data; the plain version at n = 1024."""
-    from exblas_tpu_torch.core.types import L_DOT, N_SPECIAL
-    from exblas_tpu_torch.ops.kernels import _build
+    overflowing data; the plain version at n = 1024; an estimate of the
+    chain from assumed latencies."""
     from exblas_tpu_torch.ops.kernels import trsv_kernel as tk
 
     n = N_TRSV
@@ -2042,24 +2180,8 @@ def phase_trsv_timing(xt, smi: str, bench) -> dict:
                            reps=3, inner=1)
     tm["b10_bench"] = time_ms(lambda: tk.trsv_lower_x_cuda(ab, bb, False),
                               reps=3, inner=1)
-    # the parts, as the C entry launches them: the panels read the solved x
-    x = tk.trsv_lower_x_cuda(tb, bb, False)
-    lib, stream = _build.library(), _build.stream_of(t.device)
-    acc = torch.zeros((tk.B, L_DOT), dtype=torch.int64, device="cuda")
-    spec = torch.zeros((tk.B, N_SPECIAL), dtype=torch.int64, device="cuda")
-    xs = torch.empty_like(x)
-
-    def part(name, out):
-        _build.check(lib.trsv_lower_x_cuda(
-            _build.ptr(tb), _build.ptr(bb), n, 0, tk.B, tk.PARTS[name],
-            _build.ptr(acc), _build.ptr(spec), _build.ptr(out), stream),
-            "trsv_lower_x_cuda")
-
-    tm["panel"] = time_ms(lambda: part("panel", x), reps=5, inner=1)
-    acc.zero_()
-    spec.zero_()
-    tm["diag"] = time_ms(lambda: part("diag", xs), reps=5, inner=1)
-    del acc, spec, xs
+    # the solver warp's step split, from one launch with its stamps on
+    split = tk.trsv_step_split(tb, bb, False)
     tm["pub"] = time_ms(lambda: xt.extrsv("L", "N", "N", t, b), reps=3,
                         inner=1)
     tm["pub_ut"] = time_ms(lambda: xt.extrsv("U", "T", "N", tt, b), reps=3,
@@ -2093,9 +2215,15 @@ def phase_trsv_timing(xt, smi: str, bench) -> dict:
         f"{tk.B} ({tm['b10'] / n * 1e3:.3f} us a row), {tm['b10_64']:.4f} ms "
         f"at block 64; bench data (special-dominated past row 1593): "
         f"{tm['b10_bench']:.4f} ms")
-    log(f"  B10 parts: panels (B7 launches) {tm['panel']:.4f} ms, diagonal "
-        f"blocks {tm['diag']:.4f} ms ({tm['diag'] / n * 1e3:.3f} us a "
-        "step of the chain)")
+    step = sum(split.values())
+    phases = ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+    log(f"  B10 step split (solver warp, clock64 cycles a step): {phases}; "
+        f"{step:.1f} cycles a step, {step * n / clock * 1e3:.4f} ms at "
+        f"{clock / 1e6:.0f} MHz")
+    chain = n * TRSV_CHAIN_CYCLES / clock * 1e3
+    log(f"  B10 chain estimate (not measured): n x {TRSV_CHAIN_CYCLES} "
+        f"cycles, a step's dependent latency summed from assumed "
+        f"instruction latencies, = {chain:.4f} ms")
     log(f"  public xt.extrsv L/N: {tm['pub']:.4f} ms; U/T on T^T stored: "
         f"{tm['pub_ut']:.4f} ms (its copy of T {tm['copy']:.4f} ms)")
     log(f"  float64 control torch.linalg.solve_triangular: {tm['lib']:.4f} "
@@ -2108,7 +2236,7 @@ def phase_trsv_timing(xt, smi: str, bench) -> dict:
         ms=tm["b10"], plain_ms=tm["plain"], bound_ms=max(by_bytes, by_ops),
         bound_by="bytes" if by_bytes >= by_ops else "operations",
         library_ms=tm["lib"], shape=[n, n], plain_shape=[pm, pm],
-        library="torch.linalg.solve_triangular")}
+        library="torch.linalg.solve_triangular", step_cycles=split)}
 
 
 # ---------------------------------------------------------------------------
@@ -2124,6 +2252,16 @@ INT32_LANES = 64      # int32 operations per clock per H100 SM
 # carry add it to a 128-bit sum.  Decoding is per element of A and B, not
 # per product, and is left out.
 B5_INT_OPS = 11
+# An estimate, not a measurement: the dependent latency of one step of
+# B10's chain, in cycles, summed from assumed H100 instruction latencies
+# (shared load or store about 30, integer operation 4, warp vote or
+# shuffle about 25, fp64 operation 8): the flag's load 30; the deposit 90 (three word loads 30, six carry-chained adds 24, the
+# stores 30, a warp barrier 6); the rounding 170 (the words' loads 30, two
+# rounds of three ballots 50, the magnitude 12, two shuffles 25, window and
+# encoding 13 dependent operations 52); the divide 96 (a reciprocal and
+# Newton steps, 12 dependent fp64 operations); the publish 64 (store, block
+# fence, flag store).
+TRSV_CHAIN_CYCLES = 30 + 90 + 170 + 96 + 64
 
 KERNELS = (
     ("exsum_acc_cuda", "exblas_tpu_torch/ops/kernels/csrc/sum_kernel.cu",
@@ -2164,12 +2302,64 @@ FAST_KERNELS = (
 )
 
 
+PHASES = ("kernels", "fast_kernels", "public_api", "gemm_kernels",
+          "gemm_public", "gemv_kernels", "gemv_public", "trsv_kernels",
+          "trsv_public", "timing", "fast_timing", "gemm_timing",
+          "gemv_timing", "trsv_timing")
+
+
+def run_only(xt, smi: str, names: list[str]) -> None:
+    """The named phases alone, in the full run's order."""
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown:
+        raise SystemExit(f"unknown phases {unknown}; known: {PHASES}")
+    data = {}
+
+    def bench(group: str):
+        if group not in data:
+            data[group] = {"gemm": lambda: gemm_bench_data(xt, N_GEMM),
+                           "gemv": lambda: gemv_bench_data(xt, N_GEMV),
+                           "trsv": lambda: trsv_bench_data(xt, N_TRSV)}[
+                               group]()
+        return data[group]
+
+    steps = {
+        "kernels": lambda: phase_kernels(xt),
+        "fast_kernels": lambda: phase_fast_kernels(xt),
+        "public_api": lambda: phase_public_api(xt),
+        "gemm_kernels": lambda: phase_gemm_kernels(xt),
+        "gemm_public": lambda: phase_gemm_public(xt, bench("gemm")),
+        "gemv_kernels": lambda: phase_gemv_kernels(xt),
+        "gemv_public": lambda: phase_gemv_public(xt, bench("gemv")),
+        "trsv_kernels": lambda: phase_trsv_kernels(xt),
+        "trsv_public": lambda: phase_trsv_public(xt, bench("trsv")),
+        "timing": lambda: phase_timing(xt, smi),
+        "fast_timing": lambda: phase_fast_timing(xt, smi),
+        "gemm_timing": lambda: phase_gemm_timing(xt, smi, bench("gemm")),
+        "gemv_timing": lambda: phase_gemv_timing(xt, smi, bench("gemv")),
+        "trsv_timing": lambda: phase_trsv_timing(xt, smi, bench("trsv")),
+    }
+    for name in PHASES:
+        if name in names:
+            steps[name]()
+    log(f"chip_smoke --only {','.join(names)}: passed")
+
+
 def main() -> None:
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        only = sys.argv[2].split(",")
+    elif len(sys.argv) != 1:
+        raise SystemExit("usage: chip_smoke.py [--only PHASE,...]")
     smi = phase_device()
     import exblas_tpu_torch as xt
 
     t0 = time.perf_counter()
     phase_build()
+    if only is not None:
+        run_only(xt, smi, only)
+        log(f"chip_smoke seconds {time.perf_counter() - t0:.1f}")
+        return
     errs = phase_kernels(xt)
     errs.update(phase_fast_kernels(xt))
     launches = phase_public_api(xt)

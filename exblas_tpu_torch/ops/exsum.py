@@ -99,11 +99,13 @@ def as_f64(x, device: torch.device) -> torch.Tensor:
 
 def as_f64_vector(x, inc: int, offset: int,
                   device: torch.device) -> torch.Tensor:
-    """``x[offset::inc]`` as a contiguous 1-D float64 tensor on
+    """``x[offset::inc]`` by numpy's slicing rules (a negative ``inc`` or
+    ``offset`` included) as a contiguous 1-D float64 tensor on
     ``device``."""
     x = as_f64(x, device).reshape(-1)
     if offset or inc != 1:
-        x = x[offset::inc]
+        r = range(x.shape[0])[offset::inc]
+        x = x[torch.arange(r.start, r.stop, r.step, device=x.device)]
     return x.contiguous()
 
 
@@ -209,9 +211,9 @@ def exsum(x, inca: int = 1, offset: int = 0, fpe: int = 2,
     is copied to host memory.  Results are bit-identical either way.
     """
     if not parallel:
+        # as in the JAX package, the host path does not check fpe
         from ..cpu_backend import exsum_cpu
 
-        _validate_fpe(fpe)
         x = as_f64_vector(x, inca, offset, torch.device("cpu"))
         return exsum_cpu(x.numpy(), num_threads=1)
     return bits_to_float(exsum_bits(x, inca=inca, offset=offset, fpe=fpe,

@@ -2,127 +2,174 @@
 // (+ beta * c[i,j])), every product exact down to 2^-2148 and each element
 // rounded once, on the device.
 //
-// Replaces exblas_tpu/ops/kernels/gemm_kernel.py: gemm_bits_pallas
+// Replaces exblas_tpu/ops/kernels/gemm_kernel.py:179 gemm_bits_pallas
 // (_gemm_kernel).  The TPU kernel walks (8, 128) output tiles with k in
 // sublanes, deposits 14-bit shift classes into a phase-layout int32
 // accumulator with _renorm8 carry passes and mask-selects rows; none of
-// that carries over.  Here one warp owns one output element at a time:
-//   * its 32 lanes stride over k with coalesced 8-byte loads of row i of z
-//     and row j of b^T (the wrapper passes b transposed and contiguous),
-//     four products in flight per lane;
-//   * each product is decoded and formed exactly as in dot_kernel.cu
-//     (exblas::decode_product, __umul64hi) and added whole into the warp's
-//     BinWindow register bins, or digit by digit into the warp's own
-//     DOT_FORMAT accumulator of 216 int64 limbs in shared memory (1.7 KB);
-//   * lane 0 adds the exact 106-bit product beta * c[i,j] (beta = 1 makes
-//     it c itself) and the special counts follow exblas_tpu/core/deposit.py;
-//   * the warp finds the nonzero limb range by ballots and lane 0 rounds
-//     only that range (round.cuh round_limbs), so rounding costs a few
-//     dozen limbs, not 216, per element.
-// A limb takes at most one digit below 2^20 per product and per flushed
-// bin, so int64 limbs need no carry pass while k <= 2^42 (the wrapper
-// checks).  No floating-point operation touches the data, so the bits do
-// not depend on the order of the lanes' atomics.
+// that carries over.  Here each thread owns one output element and its own
+// exact accumulator, so no deposit needs an atomic:
+//   * a block of 256 threads owns a 16 x 16 tile of C; the tiles are
+//     numbered row by row on grid.x alone, so m and n are limited only by
+//     2^31 - 1 tiles.  The tile's 16 rows of z and 16 columns of b (rows
+//     of b^T: the wrapper passes b transposed and contiguous) come through
+//     shared memory in chunks of kChunk = 32 values of k; the next chunk's
+//     raw bits are loaded into registers while the current one is used;
+//   * each element is decoded once per chunk (significand, max(expf, 1),
+//     sign and class, kulisch.cuh decode_meta) and then serves the 16
+//     threads of its row or column;
+//   * a thread's accumulator is kulisch.cuh's word accumulator: 68 words of
+//     64 bits in shared memory, laid out [word][thread], so the 32 lanes of
+//     a warp touch 32 distinct banks whatever word each adds to.  A product
+//     is one 64x64 -> 128-bit multiply and a three-word add with carries
+//     (add_words).  The words start biased (kulisch.cuh kBiasWord), so a
+//     carry or borrow out of the third word stops at the fourth even where
+//     the sum changes sign, which would otherwise flip every word above it;
+//   * NaN, +Inf and -Inf products are counted in registers, as
+//     exblas_tpu/core/deposit.py counts them (0 * Inf is NaN), on a path a
+//     chunk takes only when one of its elements is special;
+//   * the thread adds the exact product beta * c[i,j] (beta = 1 makes it c
+//     itself), removes the bias and rounds its words once (kulisch.cuh
+//     unbias_words, round_words: the bits of round.cuh round_limbs on the
+//     same value; an exact zero is +0.0) and applies the specials.
+// No floating-point operation touches the data, so the bits depend on
+// neither the tile nor the chunk.
 //
-// Bound on the H100: integer issue.  Each product costs a few dozen
-// integer instructions (decode of both operands, the 64-bit product, the
-// 192-bit bin add) and the tensor cores cannot help, so at n = 4096 the
-// 2^36 products take far longer than the 0.4 GB the kernel reads; this
-// kernel is the fallback behind the int8 slice kernel (gemm_mxu.cu) for
-// data it cannot cover.
+// Headroom: a product is below 2^(2148 + 2048) in units of bit 0, so k <=
+// MAX_TERMS = 2^42 products (the wrapper checks) and beta * c stay below
+// 2^4239 in magnitude; 68 words hold 4,352 bits, so the two's-complement
+// sum never wraps.
+//
+// Shared memory: 68 words x 8 bytes x 256 threads = 139,264 bytes of
+// accumulators plus 13,056 bytes for one decoded chunk of z and b: one
+// block per SM, 8 warps.
+//
+// Bound on the H100: at n = 4096 the 2^36 products need at least 11 int32
+// operations each (45.2 ms at 64 per clock per SM; PERF.md section 6),
+// more than the 0.4 GB of operands take (0.12 ms).  This design also has
+// its own bound in shared-memory wavefronts: a warp's 32 products take 12
+// for the three words read and written (64-bit accesses, two wavefronts
+// each) and 4 for the decoded operands, 0.5 cycles a product per SM:
+// 131 ms at 1980 MHz on 132 SMs.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "deposit.cuh"
+#include "kulisch.cuh"
 #include "round.cuh"
 
 namespace {
 
-using exblas::kDigits;
-using exblas::kDotLimbs;
-using exblas::kDotOffset;
+using exblas::kWords;
 
-constexpr int kWarps = exblas::kBlock / 32;
-constexpr int kWs = kDotLimbs + 3;  // limbs, then NaN, +Inf, -Inf counts
-constexpr int kUnroll = 4;          // products loaded per lane per step
+constexpr int kTile = 16;                   // C tile: kTile x kTile
+constexpr int kThreads = kTile * kTile;     // one thread per element
+constexpr int kChunk = 32;                  // k values staged at once
+constexpr int kLoads = kTile * kChunk / kThreads;  // per thread per operand
+constexpr int kAccBytes = kWords * kThreads * 8;
 
-__global__ void __launch_bounds__(exblas::kBlock)
-    gemm_exact_kernel(const long long* __restrict__ z,
+__global__ void __launch_bounds__(kThreads)
+    gemm_words_kernel(const long long* __restrict__ z,
                       const long long* __restrict__ bt,
                       const long long* __restrict__ c, long long beta,
                       int beta_mode, long long m, long long n, long long k,
                       long long* __restrict__ out) {
-  __shared__ unsigned long long s_acc[kWarps][kWs];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  unsigned long long* acc = s_acc[warp];
-  const long long total = m * n;
-  for (long long e = static_cast<long long>(blockIdx.x) * kWarps + warp;
-       e < total; e += static_cast<long long>(gridDim.x) * kWarps) {
-    for (int j = lane; j < kWs; j += 32) acc[j] = 0ULL;
-    __syncwarp();
-    const long long* zr = z + (e / n) * k;
-    const long long* br = bt + (e % n) * k;
-    exblas::BinWindow<kDigits> window;
-    long long nan_c = 0, pinf_c = 0, ninf_c = 0;
-    // Warp-uniform loop bound; lanes past k decode 0 * 0.
-    for (long long base = 0; base < k; base += 32 * kUnroll) {
-      long long va[kUnroll], vb[kUnroll];
+  extern __shared__ unsigned long long s_acc[];  // word w at [w * kThreads]
+  // [k][row or column], rows padded by one so the decode's stores (32
+  // values of k of one row per warp) spread over the banks
+  __shared__ unsigned long long s_zm[kChunk][kTile + 1];
+  __shared__ unsigned long long s_bm[kChunk][kTile + 1];
+  __shared__ int s_zx[kChunk][kTile + 1], s_bx[kChunk][kTile + 1];
+  const int tid = threadIdx.x;
+  const int ty = tid / kTile, tx = tid % kTile;
+  const long long tiles_n = (n + kTile - 1) / kTile;
+  const long long i0 = blockIdx.x / tiles_n * kTile;
+  const long long j0 = blockIdx.x % tiles_n * kTile;
+  unsigned long long* acc = s_acc + tid;
+#pragma unroll 4
+  for (int w = 0; w < kWords; ++w) acc[w * kThreads] = exblas::kBiasWord;
+
+  // Element e = tid + kThreads * u of a chunk: row (or column) e / kChunk,
+  // k offset e % kChunk; out-of-range values load as +0.0.
+  long long rz[kLoads], rb[kLoads];
+  auto load = [&](long long k0) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long i = base + u * 32 + lane;
-        va[u] = i < k ? zr[i] : 0LL;
-        vb[u] = i < k ? br[i] : 0LL;
-      }
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = tid + kThreads * u;
+      const long long kk = k0 + e % kChunk;
+      const long long i = i0 + e / kChunk, j = j0 + e / kChunk;
+      rz[u] = (i < m && kk < k) ? z[i * k + kk] : 0LL;
+      rb[u] = (j < n && kk < k) ? bt[j * k + kk] : 0LL;
+    }
+  };
+  long long nan_c = 0, pinf_c = 0, ninf_c = 0;
+  load(0);
+  for (long long k0 = 0; k0 < k; k0 += kChunk) {
+    __syncthreads();  // the previous chunk is used up
+    int special = 0;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        int q;
-        unsigned long long lo, hi;
-        bool negative;
-        const bool valid =
-            exblas::decode_product(va[u], vb[u], kDotOffset, q, lo, hi,
-                                   negative, nan_c, pinf_c, ninf_c);
-        window.add(valid, q, lo, hi, negative, acc);
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = tid + kThreads * u;
+      unsigned long long mant;
+      int meta;
+      exblas::decode_meta(rz[u], mant, meta);
+      s_zm[e % kChunk][e / kChunk] = mant;
+      s_zx[e % kChunk][e / kChunk] = meta;
+      special |= meta;
+      exblas::decode_meta(rb[u], mant, meta);
+      s_bm[e % kChunk][e / kChunk] = mant;
+      s_bx[e % kChunk][e / kChunk] = meta;
+      special |= meta;
+    }
+    const bool any_special =
+        __syncthreads_or(special & exblas::kMetaSpecial) != 0;
+    if (k0 + kChunk < k) load(k0 + kChunk);  // in flight while we deposit
+    const int kn = k - k0 < kChunk ? static_cast<int>(k - k0) : kChunk;
+    if (any_special) {
+      for (int kk = 0; kk < kn; ++kk) {
+        const int ma = s_zx[kk][ty], mb = s_bx[kk][tx];
+        if ((ma | mb) & exblas::kMetaSpecial) {
+          exblas::count_special(ma, mb, nan_c, pinf_c, ninf_c);
+        }
       }
     }
-    window.flush(acc);
-    exblas::deposit_specials(acc, kDotLimbs, nan_c, pinf_c, ninf_c);
-    if (lane == 0 && beta_mode != 0) {
-      long long cn = 0, cp = 0, cm = 0;
-      int q;
-      unsigned long long lo, hi;
-      bool negative;
-      if (exblas::decode_product(beta, c[e], kDotOffset, q, lo, hi, negative,
-                                 cn, cp, cm)) {
-        exblas::deposit_digits<kDigits>(acc, q, lo, hi, negative);
-      }
-      acc[kDotLimbs] += cn;
-      acc[kDotLimbs + 1] += cp;
-      acc[kDotLimbs + 2] += cm;
+    // One product a pass, so scripts/b5_sass.py reads the loop directly;
+    // the next product's operands are loaded before this one's deposit.
+    unsigned long long xa = s_zm[0][ty], xb = s_bm[0][tx];
+    int ma = s_zx[0][ty], mb = s_bx[0][tx];
+#pragma unroll 1
+    for (int kk = 0; kk < kn; ++kk) {
+      const unsigned long long ya = xa, yb = xb;
+      const int na = ma, nb = mb;
+      const int k1 = kk + 1 < kn ? kk + 1 : kk;
+      xa = s_zm[k1][ty];
+      xb = s_bm[k1][tx];
+      ma = s_zx[k1][ty];
+      mb = s_bx[k1][tx];
+      if (ya == 0ULL || yb == 0ULL) continue;  // zeros and specials
+      exblas::add_words(acc, kThreads, exblas::product_pos(na, nb), ya * yb,
+                        __umul64hi(ya, yb),
+                        ((na ^ nb) & exblas::kMetaSign) != 0);
     }
-    __syncwarp();
-    // The nonzero limb range, 32 limbs per ballot.
-    int jlo = kDotLimbs, jhi = -1;
-    for (int j0 = 0; j0 < kDotLimbs; j0 += 32) {
-      const int j = j0 + lane;
-      const unsigned nz =
-          __ballot_sync(exblas::kFullMask, j < kDotLimbs && acc[j] != 0ULL);
-      if (nz != 0u) {
-        if (jlo == kDotLimbs) jlo = j0 + __ffs(nz) - 1;
-        jhi = j0 + 31 - __clz(nz);
-      }
-    }
-    if (lane == 0) {
-      long long* limbs = reinterpret_cast<long long*>(acc);
-      const unsigned long long bits =
-          exblas::round_limbs(limbs, jlo, jhi, kDotLimbs, kDotOffset);
-      out[e] = static_cast<long long>(exblas::apply_specials(
-          bits, limbs[kDotLimbs], limbs[kDotLimbs + 1],
-          limbs[kDotLimbs + 2]));
-    }
-    __syncwarp();
   }
+  const long long i = i0 + ty, j = j0 + tx;
+  if (i >= m || j >= n) return;
+  if (beta_mode != 0) {
+    unsigned long long lo, hi;
+    int p;
+    bool negative;
+    if (exblas::word_product(beta, c[i * n + j], lo, hi, p, negative, nan_c,
+                             pinf_c, ninf_c)) {
+      exblas::add_words(acc, kThreads, p, lo, hi, negative);
+    }
+  }
+  // a special count decides the bits whatever the rounding gives
+  unsigned long long bits = 0ULL;
+  if ((nan_c | pinf_c | ninf_c) == 0) {
+    exblas::unbias_words(acc, kThreads);
+    bits = exblas::round_words(acc, kThreads);
+  }
+  out[i * n + j] = static_cast<long long>(
+      exblas::apply_specials(bits, nan_c, pinf_c, ninf_c));
 }
 
 }  // namespace
@@ -135,16 +182,14 @@ extern "C" {
 int gemm_bits_cuda(const void* z, const void* bt, const void* c,
                    long long beta, int beta_mode, long long m, long long n,
                    long long k, void* out, void* stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_words_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kAccBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long want = (m * n + kWarps - 1) / kWarps;
-  const long long cap = static_cast<long long>(sms) * (2048 / exblas::kBlock);
-  const int grid = static_cast<int>(want < cap ? want : cap);
-  gemm_exact_kernel<<<grid, exblas::kBlock, 0,
+  const long long tiles =
+      ((m + kTile - 1) / kTile) * ((n + kTile - 1) / kTile);
+  if (tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  gemm_words_kernel<<<static_cast<unsigned>(tiles), kThreads, kAccBytes,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(z), static_cast<const long long*>(bt),
       static_cast<const long long*>(c), beta, beta_mode, m, n, k,

@@ -179,6 +179,26 @@ def test_exdot_inc_offset_both_vectors():
     assert got == bits_of(exact_dot(a[1::2], b[2::3]))
 
 
+@pytest.mark.parametrize("inc,offset", [(-1, 999), (-3, 500), (-1, -1)])
+def test_exdot_negative_stride_matches_jax(inc, offset):
+    """Negative strides and offsets slice by numpy's rules, as the JAX
+    package slices them (ROADMAP queue C, C1)."""
+    import exblas_tpu as xb
+
+    a = np.random.default_rng(0).standard_normal(N)
+    b = xt.init_lognormal(N, 0.0, 2.0, seed=33)
+    kw = dict(inca=inc, offseta=offset, incb=inc, offsetb=offset)
+    got = port_dot_bits(a, b, **kw)
+    assert_same_bits(got, jax_dot_bits(a, b, **kw), f"{kw} vs jax")
+    assert got == bits_of(exact_dot(a[offset::inc], b[offset::inc]))
+    assert_same_state(port_state(xt.exdot_acc(_t(a), _t(b), **kw)),
+                      jax_state(xb.exdot_acc(a, b, impl="xla", **kw)),
+                      str(kw))
+    if (inc, offset) == (-1, 999):
+        assert xt.exdot(a, a, inca=-1, offseta=999, incb=-1, offsetb=999,
+                        device="cpu") == 956.3530648422026
+
+
 def test_exdot_shape_and_device_checks():
     with pytest.raises(ValueError, match="shape mismatch"):
         xt.exdot(_t([1.0, 2.0]), _t([1.0]))

@@ -258,6 +258,23 @@ def test_exgemv_fpe1_control():
     assert np.allclose(base.numpy(), a @ x, rtol=1e-6)
 
 
+def test_exgemv_fpe1_control_strided_y():
+    """The fpe == 1 control applies incy, as the exact path does; the JAX
+    package's control passes y unstrided and fails on such a call
+    (ROADMAP queue C), so the port is held against JAX's control on the
+    dense y the stride selects.  The control is plain float64, rounded in
+    each package's own order: the two agree to 1e-12, not bit for bit."""
+    a = xb.init_fpuniform_matrix(4, 3, 5, 0, seed=66)
+    x = xb.init_fpuniform(3, 5, 0, seed=67)
+    y = xb.init_fpuniform(8, 5, 0, seed=68)
+    got = xt.exgemv("N", 1.0, a, x, beta=0.5, y=y, incy=2, fpe=1,
+                    device="cpu")
+    want = JE.exgemv("N", 1.0, a, x, beta=0.5, y=y[::2], fpe=1)
+    assert np.allclose(got.numpy(), np.asarray(want), rtol=1e-12)
+    exact = xt.exgemv("N", 1.0, a, x, beta=0.5, y=y, incy=2, device="cpu")
+    assert np.allclose(got.numpy(), exact.numpy(), rtol=1e-12)
+
+
 def test_exgemv_device_rules(monkeypatch):
     a = xb.init_fpuniform_matrix(4, 5, 5, 0, seed=64)
     x = xb.init_fpuniform(5, 5, 0, seed=65)

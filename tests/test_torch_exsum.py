@@ -193,6 +193,52 @@ def test_exsum_inca_offset():
                      "vs oracle")
 
 
+# Negative strides and offsets slice by numpy's rules, as the JAX package
+# slices them (ROADMAP queue C, C1): n = 1000 with (inca, offset).
+NEG_STRIDES = [(-1, 999), (-3, 500), (-1, -1), (-3, 999)]
+
+
+@pytest.fixture(scope="module")
+def c1_data():
+    return np.random.default_rng(0).standard_normal(N)
+
+
+@pytest.mark.parametrize("inca,offset", NEG_STRIDES)
+def test_exsum_negative_stride_matches_jax(c1_data, inca, offset):
+    import exblas_tpu as xb
+
+    x = c1_data
+    kw = dict(inca=inca, offset=offset)
+    got = port_sum_bits(x, **kw)
+    assert_same_bits(got, jax_sum_bits(x, **kw), f"{kw} vs jax")
+    assert_same_bits(got, np.float64(exact_sum(x[offset::inca])).view(
+        np.uint64), f"{kw} vs oracle")
+    assert_same_state(port_state(xt.exsum_acc(_t(x), **kw)),
+                      jax_state(xb.exsum_acc(x, impl="xla", **kw)), str(kw))
+    host = xt.exsum(x, parallel=False, **kw)
+    assert bits_of(host) == bits_of(xb.exsum(x, parallel=False, **kw))
+    assert bits_of(host) == got
+
+
+def test_exsum_negative_stride_known_value(c1_data):
+    """The value the fault report gives for inca -1, offset 999."""
+    assert xt.exsum(c1_data, inca=-1, offset=999, device="cpu") == \
+        -48.02827676298693
+
+
+def test_exsum_host_path_skips_fpe_check():
+    """``parallel=False`` returns before any fpe check, as in the JAX
+    package (ROADMAP queue C, C2)."""
+    import exblas_tpu as xb
+
+    y = np.random.default_rng(1).standard_normal(100)
+    got = xt.exsum(y, fpe=9, parallel=False)
+    assert bits_of(got) == bits_of(xb.exsum(y, fpe=9, parallel=False))
+    assert got == -7.361212127294709
+    with pytest.raises(ValueError):
+        xt.exsum(_t(y), fpe=9)
+
+
 def test_exsum_cpp_backend_agrees():
     x = xt.init_lognormal(5000, 0.0, 2.0, seed=16)
     assert bits_of(xt.exsum(_t(x), parallel=False)) == port_sum_bits(x)
