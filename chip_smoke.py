@@ -988,7 +988,12 @@ def phase_fast_timing(xt, smi: str) -> dict:
 GEMM_SHAPES = ((1, 1, 1), (5, 7, 9), (17, 130, 33), (128, 256, 128),
                (257, 1000, 129))
 GEMM_DISTS = ("narrow", "mixed", "wide", "very_wide", "subnormal",
-              "cancellation", "nan", "inf", "inf_times_zero", "both_inf")
+              "overflow", "edge", "cancellation", "nan", "inf",
+              "inf_times_zero", "both_inf")
+# covered data without specials: the slice kernel must give B5's bits
+GEMM_COVERED = ("narrow", "mixed", "wide", "very_wide", "overflow", "edge")
+# rung (8, 8) with k above one exact chunk (two launches and their words)
+B6_LONG_K = (257, 8192 + 33, 129)
 GEMM_RUNGS = ((8, 8), (8, 12), (16, 16), (40, 40))
 # B5's tile is 16 x 16 and its k chunk 32: ragged shapes, k = 1 included
 B5_WIDE_SHAPES = ((33, 1, 47), (40, 65, 31), (70, 300, 50))
@@ -1012,10 +1017,29 @@ def rand_mat(m: int, n: int, lo: int, hi: int, seed: int,
     return x
 
 
+def edge_mat(m: int, n: int, top: int, seed: int) -> np.ndarray:
+    """Doubles whose leading bits lie in [top - 11, top], with odd
+    significands: 64 bits from the largest leading bit to the lowest lsb,
+    the coverage edge of GEMM rung (8, 8) and GEMV rung (2, 2).  Every
+    eighth is +-(2 - 2^-52) 2^top, whose top byte carries into the carry
+    digit; signs are random."""
+    rs = np.random.RandomState(seed)
+    frac = rs.randint(0, 1 << 52, size=(m, n), dtype=np.int64) | 1
+    e = rs.randint(top - 11, top + 1, size=(m, n)).astype(np.int64)
+    x = (((e + 1023) << 52) | frac).view(np.float64)
+    x = np.where(rs.rand(m, n) < 0.125, (2.0 - 2.0 ** -52) * 2.0 ** top, x)
+    return x * np.where(rs.rand(m, n) < 0.5, -1.0, 1.0)
+
+
 def gemm_case(dist: str, m: int, k: int, n: int, seed: int):
     """(a (m, k), b (k, n), c (m, n)) of distribution ``dist``."""
     rs = np.random.RandomState(seed)
     c = rand_mat(m, n, 0, 10, seed + 2)
+    if dist == "overflow":  # products near 2^1030: most sums overflow
+        return (rand_mat(m, k, 505, 515, seed),
+                rand_mat(k, n, 505, 515, seed + 1), c)
+    if dist == "edge":  # the recode's edge cases
+        return edge_mat(m, k, 5, seed), edge_mat(k, n, -3, seed + 1), c
     spans = {"narrow": (0, 10, 0, 10), "mixed": (0, 10, -20, 20),
              "wide": (-35, 35, -35, 35), "very_wide": (-130, 130, -130, 130),
              "subnormal": (-545, -535, -545, -535)}
@@ -1145,25 +1169,28 @@ def phase_gemm_kernels(xt) -> dict:
                 line.append(f"B6({sa},{sb}) {'==' if e == 0 else '!='}")
                 if e != 0:
                     failures.append(f"B6 ({sa},{sb}) {m}x{k}x{n} {dist}")
-                if dist in ("narrow", "mixed", "wide", "very_wide") and \
-                        not torch.equal(mk, ek):
+                if dist in GEMM_COVERED and not torch.equal(mk, ek):
                     failures.append(f"B6 != B5 ({sa},{sb}) {m}x{k}x{n} "
                                     f"{dist}")
                 if si == len(GEMM_SHAPES) - 1:
-                    # the class sums in turns of 64 rows, as a large m x n
-                    # takes them
-                    whole, gm.CLS_BYTES = gm.CLS_BYTES, 1
+                    # rung (8, 8) one launch a chunk of 64 k, its words
+                    # carried between launches; the other rungs' class
+                    # sums in turns of 64 rows, as a large m x n takes them
+                    name, small = (("K_CHUNK", 64) if (sa, sb) == (8, 8)
+                                   else ("CLS_BYTES", 1))
+                    whole = getattr(gm, name)
+                    setattr(gm, name, small)
                     try:
                         mt = gm.gemm_bits_mxu_cuda(za, zb, zc, bb, mode, sa,
                                                    sb, **kw)
                     finally:
-                        gm.CLS_BYTES = whole
+                        setattr(gm, name, whole)
                     n_turns += 1
                     same = torch.equal(mt, mk)
-                    line.append(f"in row turns {'==' if same else '!='}")
+                    line.append(f"{name} {small} {'==' if same else '!='}")
                     if not same:
                         failures.append(f"B6 ({sa},{sb}) {m}x{k}x{n} {dist} "
-                                        "in row turns")
+                                        f"{name} {small}")
             # the public entry: transposes, the ladder and the override
             sa_np = a_np.T.copy() if tr[0] == "T" else a_np
             sb_np = b_np.T.copy() if tr[1] == "T" else b_np
@@ -1176,6 +1203,23 @@ def phase_gemm_kernels(xt) -> dict:
                 failures.append(f"public {m}x{k}x{n} {dist} {tr}")
             line.append(f"public {'==' if torch.equal(pk, pp) else '!='}")
             log(" ".join(line))
+    # rung (8, 8) with k above one exact chunk, every beta mode
+    m, k, n = B6_LONG_K
+    for di, dist in enumerate(("narrow", "edge")):
+        a_np, b_np, c_np = gemm_case(dist, m, k, n, SEED + 95 + di)
+        za, zb, zc = cuda_bits(a_np), cuda_bits(b_np), cuda_bits(c_np)
+        for mode, beta in BETA_MODES:
+            bb = s64(beta)
+            mk = gm.gemm_bits_mxu_cuda(za, zb, zc, bb, mode, 8, 8)
+            e = mismatch_err(mk, gm.gemm_bits_mxu_torch(za, zb, zc, bb, mode,
+                                                        8, 8))
+            errs["gemm_bits_mxu_cuda"] = max(errs["gemm_bits_mxu_cuda"], e)
+            same5 = torch.equal(mk, gk.gemm_bits_cuda(za, zb, zc, bb, mode))
+            log(f"B6 (8, 8) {m}x{k}x{n} {dist} {mode} (k above one chunk of "
+                f"{gm.K_CHUNK}): {'==' if e == 0 else '!='} plain, "
+                f"{'==' if same5 else '!='} B5")
+            if e != 0 or not same5:
+                failures.append(f"B6 (8, 8) {m}x{k}x{n} {dist} {mode}")
     n_wide = 0
     for si, (m, k, n) in enumerate(B5_WIDE_SHAPES):
         # a 600-binade pair: no rung covers it, so only B5 ever takes it
@@ -1227,8 +1271,10 @@ def phase_gemm_kernels(xt) -> dict:
         raise AssertionError(f"GEMM kernel != plain version: {failures}")
     log(f"GEMM kernels vs plain versions: bit-equal (tolerance 0) on "
         f"{len(GEMM_SHAPES)} shapes x {len(GEMM_DISTS)} distributions, "
-        f"{n_rungs} slice-kernel rung runs ({n_turns} of them again in "
-        f"turns of {gm.ROW_TILE} rows); B5 also on {n_wide} 600-binade "
+        f"{n_rungs} slice-kernel rung runs ({n_turns} of them again with a "
+        f"chunk of 64 k at rung (8, 8), in turns of {gm.ROW_TILE} rows at "
+        f"the others), B6 at {B6_LONG_K} in every beta mode; B5 also on "
+        f"{n_wide} 600-binade "
         f"and signed {B5_SIGNED} cases (shapes {B5_WIDE_SHAPES}, every "
         f"beta mode; no rung taken by 600 binades where k > 1) and at "
         f"{B5_TALL} (m x k x n, {-(-B5_TALL[0] // 16)} row tiles)")
@@ -1271,11 +1317,20 @@ def phase_gemm_public(xt, bench) -> tuple[dict, dict]:
 
     for w in wrappers:
         w.launches = 0
+    extra = (gm.gemm_bits_mxu_cuda.class_buffers,
+             gm.gemm_bits_mxu_cuda.round_launches)
     bits = xt.exgemm_bits("N", "N", 1.0, a, b, beta=1.0, c=c)
     torch.cuda.synchronize()
     if (gm.gemm_bits_mxu_cuda.launches, gk.gemm_bits_cuda.launches) != (1, 0):
         raise AssertionError("exgemm at n=4096 did not run the slice kernel "
                              "alone")
+    if (gm.gemm_bits_mxu_cuda.class_buffers,
+            gm.gemm_bits_mxu_cuda.round_launches) != extra:
+        raise AssertionError("exgemm at n=4096 (rung (8, 8)) allocated an "
+                             "int64 class-sum buffer or launched the "
+                             "rounding kernel")
+    log("exgemm n=4096, rung (8, 8): no int64 class-sum buffer, no "
+        "rounding-kernel launch (rounded in the class kernel's epilogue)")
     wide = xt.exgemm_bits("N", "N", 1.0, wa, wb, beta=1.0, c=wc)
     spec = xt.exgemm_bits("N", "N", 1.0, xa, xb, beta=1.0, c=xc)
     torch.cuda.synchronize()
@@ -1357,6 +1412,32 @@ def phase_gemm_public(xt, bench) -> tuple[dict, dict]:
     return launches, errs
 
 
+MXU_KERNELS = {
+    "gemm": (("gemm_mxu", 0, "B6 class kernel, rung (8, 8)"),
+             ("gemm_mxu", 1, "B6 digit kernel, 8 slices"),
+             ("gemm_mxu", 2, "B6 digit kernel, other slices")),
+    "gemv": (("gemv_mxu", 0, "B9 class kernel, rung (2, 2)"),),
+}
+
+
+def mxu_resources(kind: str) -> None:
+    """Registers a thread, local (spilled) bytes and shared memory of the
+    int8 kernels of ``kind``, as the runtime reports them; a spill fails
+    the run."""
+    from exblas_tpu_torch.ops.kernels import _build
+
+    lib = _build.library()
+    out = torch.zeros(4, dtype=torch.int32)
+    for src, which, name in MXU_KERNELS[kind]:
+        _build.check(getattr(lib, f"{src}_attrs")(which, _build.ptr(out)),
+                     f"{src}_attrs")
+        regs, local, static, dynamic = out.tolist()
+        log(f"{name}: {regs} registers, {local} local bytes, {static} static "
+            f"+ {dynamic} dynamic shared bytes")
+        if local != 0:
+            raise AssertionError(f"{name} spills {local} bytes")
+
+
 def phase_gemm_timing(xt, smi: str, bench) -> dict:
     """n = 4096, beta = 1, the benchmark data: the plan, the slice kernel
     (and its digit, class and rounding launches apart), the public entry,
@@ -1367,6 +1448,7 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
     from exblas_tpu_torch.ops.kernels import gemm_kernel as gk
     from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
 
+    mxu_resources("gemm")
     n = N_GEMM
     a, b, c = (torch.from_numpy(x).cuda() for x in bench)
     ab, bbits, cb = (x.view(torch.int64) for x in (a, b, c))
@@ -1388,30 +1470,26 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
     t_digits = time_ms(lambda: gm.mxu_operands_cuda(ab, bbits, 8, 8,
                                                     **anchors),
                        reps=3, inner=1)
+    # the digit kernel on A, and on B with B's transposed copy
+    t_dig_a = time_ms(lambda: gm._digits_cuda(ab, plan.ea0, n, n, 8))
+    t_dig_b = time_ms(lambda: gm._digits_cuda(bbits.t(), plan.fb0, n, n, 8))
     t_prep_plain = time_ms(lambda: gm.mxu_operands(ab, bbits, 8, 8), reps=3,
                            inner=1)
     ops = gm.mxu_operands_cuda(ab, bbits, 8, 8, **anchors)
     t_b6 = time_ms(lambda: gm.gemm_bits_mxu_cuda(ab, bbits, cb, ONE_BITS,
                                                  "one", 8, 8, **anchors),
                    reps=5, inner=1)
-    # the class kernel and the rounding kernel apart
+    # the class kernel with its epilogue alone: one launch, k = one chunk
     lib = _build.library()
-    n_cls, n_pad, k_pad = 17, ops.bd.shape[1], ops.ad.shape[2]
-    cls = torch.empty((n_cls, n_pad, n_pad), dtype=torch.int64,
-                      device="cuda")
+    n_pad, k_pad = ops.bd.shape[1], ops.ad.shape[2]
     outb = torch.empty((n, n), dtype=torch.int64, device="cuda")
     stream = _build.stream_of(a.device)
-    nl = gm.mxu_l_rel(8, 8, "one", k_pad) + 3
-
-    t_cls = time_ms(lambda: _build.check(lib.mxu_classes_cuda(
-        _build.ptr(ops.ad), _build.ptr(ops.bd), 8, 8, n_pad * k_pad,
-        n_pad * k_pad, n_pad, n_pad, k_pad, gm._spill_run(8, 8),
-        _build.ptr(cls), stream), "mxu_classes_cuda"), reps=3, inner=1)
-    t_rnd = time_ms(lambda: lib.mxu_round_cuda(
-        _build.ptr(cls), n_cls, n_pad, n_pad, _build.ptr(ops.ea),
-        _build.ptr(ops.fb), _build.ptr(cb), ONE_BITS, 1, n, n, nl, 128,
-        _build.ptr(outb), stream), reps=5, inner=1)
-    del cls, outb
+    t_cls = time_ms(lambda: _build.check(lib.mxu_gemm88_cuda(
+        _build.ptr(ops.ad), _build.ptr(ops.bd), n_pad, n_pad, k_pad, 0,
+        k_pad, _build.ptr(ops.ea), _build.ptr(ops.fb), _build.ptr(cb),
+        ONE_BITS, 1, n, n, None, 1, 1, _build.ptr(outb), stream),
+        "mxu_gemm88_cuda"), reps=5, inner=1)
+    del outb
     t_pub = time_ms(lambda: xt.exgemm_bits("N", "N", 1.0, a, b, beta=1.0,
                                            c=c), reps=3, inner=1)
     t_b5 = time_ms(lambda: gk.gemm_bits_cuda(ab, bbits, cb, ONE_BITS, "one"),
@@ -1445,9 +1523,10 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
     t_lib = time_ms(lambda: torch.addmm(c, a, b), reps=5, inner=3)
     log(f"time n={n} beta=1 bench data [{smi}]:")
     log(f"  B6 gemm_bits_mxu_cuda rung (8, 8): {rate(t_b6)}; class kernel "
-        f"{t_cls:.3f} ms, rounding kernel {t_rnd:.3f} ms")
+        f"with its epilogue (wgmma, rounded from registers) {t_cls:.3f} ms")
     log(f"  B6 preparation (analysis, digits): {t_prep:.3f} ms; the digit "
-        f"kernel alone (anchors given): {t_digits:.3f} ms; the plain "
+        f"kernel alone (anchors given): {t_digits:.3f} ms (A {t_dig_a:.4f} "
+        f"ms, B with its transposed copy {t_dig_b:.4f} ms); the plain "
         f"preparation: {t_prep_plain:.3f} ms")
     log(f"  plan (analysis, coverage, special flags, one host sync): "
         f"{t_plan:.3f} ms")
@@ -1509,7 +1588,7 @@ GEMV_SPANS = {"narrow": (0, 10, 0, 10),           # (2, 2)
               "huge": (-220, 220, -30, 30),       # (16, 7)
               "beyond": (-300, 300, -10, 10),     # no rung: B7
               "subnormal": (-545, -535, -545, -535)}
-GEMV_DISTS = tuple(GEMV_SPANS) + ("cancellation", "nan", "inf",
+GEMV_DISTS = tuple(GEMV_SPANS) + ("edge", "cancellation", "nan", "inf",
                                   "inf_times_zero", "both_inf")
 GEMV_RUNGS = ((2, 2), (3, 3), (5, 4), (8, 6), (16, 7))
 N_GEMV = 8192
@@ -1526,6 +1605,8 @@ def gemv_case(dist: str, m: int, k: int, seed: int):
         if dist == "subnormal":  # products near and below 2^-1074
             y = np.zeros(m)
         return a, x, y
+    if dist == "edge":  # the recode's edge cases, at rung (2, 2)
+        return edge_mat(m, k, 5, seed), edge_mat(1, k, 0, seed + 1)[0], y
     if dist == "cancellation":  # [v, -v] . [w, w] == 0 exactly: +0.0
         h = k // 2
         v = rand_mat(m, h, -30, 30, seed)
@@ -1632,7 +1713,8 @@ def phase_gemv_kernels(xt) -> dict:
                 line.append(f"B9({nwa},{nwz}) {'==' if e == 0 else '!='}")
                 if e != 0:
                     failures.append(f"B9 ({nwa},{nwz}) {m}x{k} {dist}")
-                if dist in GEMV_SPANS and not torch.equal(mk, ek):
+                if (dist in GEMV_SPANS or dist == "edge") and \
+                        not torch.equal(mk, ek):
                     failures.append(f"B9 != B7 ({nwa},{nwz}) {m}x{k} {dist}")
                 if si == len(GEMV_SHAPES) - 1:
                     # the int32 sums widened every 64 k, not every 2^16
@@ -1813,6 +1895,7 @@ def phase_gemv_timing(xt, smi: str, bench) -> dict:
     from exblas_tpu_torch.ops.kernels import gemv_kernel as vk
     from exblas_tpu_torch.ops.kernels import gemv_mxu as vm
 
+    mxu_resources("gemv")
     n = N_GEMV
     a, x = (torch.from_numpy(v).cuda() for v in bench)
     y = torch.from_numpy(xt.init_fpuniform(n, 10, 0, seed=3)).cuda()

@@ -9,42 +9,63 @@
 // Replaces exblas_tpu/ops/kernels/gemm_mxu.py: gemm_bits_mxu (its
 // make_digits preparation, and _mxu_kernel with _deposit_beta_c_rel,
 // _renorm_rel and _round_rel_kernel_part).  The TPU kernel keeps int32
-// class sums in VMEM and spills them into 20-bit limbs with a carry pass
-// every _spill_run k elements, because its vector unit has int32 only.
-// Hopper has int64, so three kernels:
-//   * mxu_digits_kernel: the digit planes, one thread per element, k
-//     contiguous: A as (sa+1, m_pad, k_pad), B transposed as
-//     (sb+1, n_pad, k_pad);
-//   * a class kernel: int8 mma.sync.m16n8k32 products of digit pairs with
-//     int32 sums, exact over a k chunk of kc = _spill_run(sa, sb) <= 2048
-//     elements ((min(sa,sb)+1) pairs of |d_s d_t| <= 2^14 per k element:
-//     < 2^31), widened into int64 class sums in device memory after each
-//     chunk; an int64 class sum cannot overflow below the 2^22 k cap.  No
-//     limb spill, no carry pass.  Rung (8, 8) runs r88::class_kernel
-//     (digit indices static, tiles staged in shared memory); every other
-//     rung runs mxu_class_kernel, which holds kG = 17 classes in registers
-//     per pass over k (blockIdx.z picks the group) and loads fragments
-//     straight from device memory;
-//   * mxu_round_kernel: one thread per element adds its n_cls int64 class
-//     sums at 8-bit spacing and the exact beta*c product into a private
-//     int64 accumulator anchored at e_base - 8(sa+sb) (round.cuh
-//     add_scaled, deposit.cuh add_digits) and rounds it once with the
-//     element's exponent put back (round.cuh round_limbs).  Rounding n
-//     int64 terms at given bit positions is also what B3
-//     (round_in_kernel.py: round_scaled_terms) computes, so its port can
-//     share these routines.
+// class sums in VMEM, spills them into 20-bit limbs every _spill_run k
+// elements (its vector unit has int32 only) and rounds them in its last
+// grid step.  Here:
+//   * mxu_digits_kernel: the digit planes, four k-consecutive elements a
+//     thread (mxu.cuh's excess-128 recode, one 32-bit store a plane): A as
+//     (sa+1, m_pad, k_pad), B transposed as (sb+1, n_pad, k_pad);
+//   * rung (8, 8), the benchmark configuration's: wg88::gemm88_kernel
+//     computes the 17 class sums of a 64 x 32 tile with wgmma and rounds
+//     them in its epilogue.  A producer warpgroup keeps TMA loads of the
+//     tile's nine A and nine B^T digit planes (32-byte swizzle) in flight
+//     in a ring of stages, each with a full and an empty mbarrier; two
+//     consumer warpgroups each own 16 of the columns.  setmaxnreg moves
+//     the producer's registers to them (40 and 232 a thread:
+//     128 * 40 + 256 * 232 = 384 * 168, the block's registers at launch;
+//     an increase draws only on what the block's own warps released).
+//     wgmma in flight are ordered only on the same accumulator registers,
+//     so the classes are cut into windows (4, 8, 5) with one accumulator
+//     each (17 x 8 int32 a thread in all): digit s of A meets, in one
+//     wgmma.m64nNk32 (N = 16 classes), the B^T planes t = c - s of its
+//     window's classes c, read from a stack of the nine planes padded
+//     with zero planes on both sides.  The zero planes cost 113 block
+//     products where 81 are needed, and buy 18 wgmma a k step that run
+//     back to back.  The int32 class sums are exact over a chunk of kc k
+//     elements while kc * 9 * 2^14 < 2^31 (gemm_mxu.py exact_chunk:
+//     8192); a launch covers one chunk.  Its epilogue stashes the sums in
+//     the idle ring (no register spills), adds each element's 17 sums at
+//     8-bit spacing into three 64-bit words (the exact value is below
+//     2^169 in units of 2^(e_base - 128)), with the words of the earlier
+//     chunks and, in the last chunk, the exact beta*c, and rounds them
+//     once (kulisch.cuh round_window); a k of more than one chunk keeps
+//     its words in device memory between launches.  No class sum reaches
+//     device memory;
+//   * every other rung: mxu_class_kernel holds kG = 17 classes in
+//     registers per pass over k (blockIdx.z picks the group), int8
+//     mma.sync, int32 sums widened into int64 class sums in device memory
+//     every kc = _spill_run(sa, sb) k elements, and mxu_round_kernel adds
+//     each element's class sums and beta * c into a private int64
+//     accumulator (round.cuh add_scaled, deposit.cuh add_digits) and rounds
+//     it once (round.cuh round_limbs).  Rounding n int64 terms at given bit
+//     positions is also what B3 (round_in_kernel.py: round_scaled_terms)
+//     computes, so its port can share these routines.
 //
 // Bound on the H100: the int8 tensor cores.  A rung (sa, sb) does
 // (sa+1)(sb+1) int8 products of m x k x n: at (8, 8) and n = 4096 that is
 // 1.1e13 operations, 5.6 ms at 1,979 TOP/s, while the digit planes, C and
-// the result move 0.57 GB (0.17 ms of HBM).  mma.sync is the simple
-// route; wgmma and TMA are later work.  The class sums go through device
-// memory (n_cls x 8 bytes per element) to keep the rounding apart.
+// the result move 0.57 GB (0.17 ms of HBM).  Only wgmma reaches the full
+// rate; its tile is bounded by the registers (17 classes of a 64 x 16
+// warpgroup tile are 136 a thread).  Consecutive blocks take groups of
+// kGroupM row tiles across the column tiles, so that the blocks in flight
+// share their planes in L2.
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "deposit.cuh"
+#include "kulisch.cuh"
 #include "mxu.cuh"
 #include "round.cuh"
 
@@ -129,168 +150,367 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Rung (8, 8), the benchmark configuration's, with every digit index
-// static: a block of 8 warps (4 x 2, each 16 x 16 outputs) owns a 64 x 32
-// tile.  Per k step of 32 the block stages the nine A and nine B^T digit
-// planes of its tile in shared memory (cp.async, three stages, rows padded
-// to 48 bytes so ldmatrix hits distinct banks); each thread copies the
-// nine planes of one (row, half) of the A or B tile through a pointer it
-// computes once.  Each warp loads its nine A fragments once per k step
-// with ldmatrix and, per digit t, one B fragment pair, and issues the 162
-// mma of the step from registers into its 17 class sums.
-namespace r88 {
+// ---------------------------------------------------------------------------
+// Rung (8, 8): wgmma with TMA-fed stages, rounded in the epilogue
+// ---------------------------------------------------------------------------
+namespace wg88 {
 
-constexpr int kS = 9;               // digits per side
-constexpr int kCls = 2 * kS - 1;    // classes
-constexpr int kBM = 64, kBN = 32;   // block tile
-constexpr int kThreads = 256;
-constexpr int kRow = 48;            // padded bytes per staged row of 32
-constexpr int kABytes = kS * kBM * kRow;
-constexpr int kStage = kABytes + kS * kBN * kRow;
-constexpr int kStages = 3;
-constexpr int kSmem = kStages * kStage;  // 124,416 bytes
+constexpr int kS = 9;                     // digits per side
+constexpr int kCls = 2 * kS - 1;          // classes
+constexpr int kRel0 = 8 * (kCls - 1);     // class 0's relative bit
+constexpr int kBM = 64;                   // block rows: one wgmma M
+constexpr int kWN = 16;                   // columns of a consumer warpgroup
+constexpr int kBN = 2 * kWN;              // block columns
+constexpr int kBK = 32;                   // k per stage: one wgmma K
+constexpr int kPlaneA = kBM * kBK;        // bytes of one A plane's tile
+constexpr int kPlaneB = kWN * kBK;        // bytes of one B^T plane's tile
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+// The class windows: classes [kWin[w], kWin[w + 1]) share one accumulator
+// of 8 (kWin[w + 1] - kWin[w]) registers a thread, and digit s of A meets
+// the B^T planes t = c - s of its classes c in one wgmma of N = 16 classes
+// (a zero plane where t lies outside 0..8).  Wider windows take fewer
+// wgmma; narrower ones multiply fewer zero planes.  The times on the card
+// fit a floor of about 60 cycles a wgmma whatever its N; of the partitions
+// tried (scripts/mxu_variants.py, PERF.md), (4, 8, 5) measured fastest.
+constexpr int kWin[] = {0, 4, 12, kCls};
+constexpr int kNWin = sizeof(kWin) / sizeof(kWin[0]) - 1;
+// The digits s of A whose products reach classes [c0, c1).
+__host__ __device__ constexpr int first_s(int c0) {
+  return c0 - (kS - 1) > 0 ? c0 - (kS - 1) : 0;
+}
+__host__ __device__ constexpr int last_s(int c1) {
+  return c1 - 1 < kS - 1 ? c1 - 1 : kS - 1;
+}
+constexpr int lowest_plane() {
+  int t = 0;
+  for (int w = 0; w < kNWin; ++w) {
+    t = kWin[w] - last_s(kWin[w + 1]) < t ? kWin[w] - last_s(kWin[w + 1]) : t;
+  }
+  return t;
+}
+constexpr int highest_plane() {
+  int t = kS - 1;
+  for (int w = 0; w < kNWin; ++w) {
+    const int v = kWin[w + 1] - 1 - first_s(kWin[w]);
+    t = v > t ? v : t;
+  }
+  return t;
+}
+constexpr int kTLo = lowest_plane();       // a warpgroup's B^T stack holds
+constexpr int kZPlanes = highest_plane() - kTLo + 1;  // planes kTLo..
+constexpr int kHalfB = kZPlanes * kPlaneB;
+constexpr int kStageBytes = kS * kPlaneA + 2 * kHalfB;
+constexpr int kTmaBytes = kS * kPlaneA + 2 * kS * kPlaneB;  // 27,648
+constexpr int kSmemBudget = 232448 - 1024 - 256;
+constexpr int kStages = kSmemBudget / kStageBytes < 8
+                            ? kSmemBudget / kStageBytes : 8;
+constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+constexpr int kThreads = 384;             // two consumer warpgroups, TMA
+constexpr int kConsumerWarps = 8;
+constexpr int kGroupM = 8;                // row tiles a group of blocks takes
+static_assert(kWin[0] == 0 && kWin[kNWin] == kCls, "windows cover 0..16");
+static_assert(kCls * 8 * 256 * 4 <= kStages * kStageBytes,
+              "the epilogue's class sums fit in the ring");
+using u64 = unsigned long long;
+
+// w += x (mod 2^192).
+__device__ __forceinline__ void add192(u64 (&w)[3], u64 x0, u64 x1, u64 x2) {
+  w[0] += x0;
+  const u64 c0 = w[0] < x0 ? 1ULL : 0ULL;
+  u64 s1 = w[1] + x1;
+  u64 c1 = s1 < x1 ? 1ULL : 0ULL;
+  s1 += c0;
+  c1 += s1 < c0 ? 1ULL : 0ULL;
+  w[1] = s1;
+  w[2] += x2 + c1;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-    class_kernel(const int8_t* __restrict__ ad, const int8_t* __restrict__ bd,
-                 long long plane_a, long long plane_b, long long rows,
-                 long long n_pad, long long k_pad, long long kc,
-                 long long* __restrict__ cls) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const long long row0 = static_cast<long long>(blockIdx.y) * kBM;
-  const long long col0 = static_cast<long long>(blockIdx.x) * kBN;
-  // The copies: threads 0-127 own (row, half) of the A tile, 128-191 of
-  // the B tile; each walks the nine planes.
-  const int tid = threadIdx.x;
-  const bool copies = tid < 2 * (kBM + kBN);
-  const bool is_a = tid < 2 * kBM;
-  const int crow = (is_a ? tid : tid - 2 * kBM) >> 1;
-  const int chalf = tid & 1;
-  const int8_t* gsrc = is_a ? ad + (row0 + crow) * k_pad + chalf * 16
-                            : bd + (col0 + crow) * k_pad + chalf * 16;
-  const long long gplane = is_a ? plane_a : plane_b;
-  const int soff = (is_a ? crow * kRow : kABytes + crow * kRow) + chalf * 16;
-  const int splane = (is_a ? kBM : kBN) * kRow;
-  auto load_stage = [&](int st, long long kk) {
-    if (copies) {
-      const int8_t* g = gsrc + kk;
-      unsigned char* d = smem + st * kStage + soff;
-#pragma unroll
-      for (int p = 0; p < kS; ++p) cp_async16(d + p * splane, g + p * gplane);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  // ldmatrix row addresses: lanes 8q..8q+7 give the rows of matrix q.
-  // A: matrices (rows 0-7 | 8-15) x (bytes 0-15 | 16-31) -> a0..a3;
-  // B: (rows 0-7, bytes 0-15 | 16-31), then rows 8-15 -> b[ni][0..1].
-  const int q = lane >> 3, r = lane & 7;
-  const int a_off = (wm * 16 + (q & 1) * 8 + r) * kRow + (q >> 1) * 16;
-  const int b_off = kABytes + (wn * 16 + (q >> 1) * 8 + r) * kRow +
-                    (q & 1) * 16;
-
-  int acc[kCls][2][4];
+// The three words (two's complement, unit 2^(e_base - 128)) of
+// sum_c M_c * 2^(8 (16 - c)) for element e of a thread's stashed class
+// sums (class c's at stash[(8 c + e) * 256]): int64 sums at 32-bit
+// spacing, four classes each, then one carry pass.
+__device__ __forceinline__ void class_words(const int* stash, int e,
+                                            u64 (&w)[3]) {
+  long long t[5] = {0, 0, 0, 0, 0};
 #pragma unroll
   for (int c = 0; c < kCls; ++c) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[c][0][i] = acc[c][1][i] = 0;
+    const int p = kRel0 - 8 * c;
+    t[p >> 5] += static_cast<long long>(stash[(8 * c + e) * 256]) *
+                 (1LL << (p & 31));
   }
-  const long long steps = k_pad / 32;
-  load_stage(0, 0);
-  if (steps > 1) load_stage(1, 32);
-  for (long long step = 0; step < steps; ++step) {
-    const long long kk = step * 32;
-    // This step's copies are complete once at most one newer group is
-    // still in flight.  The barrier also retires every warp's reads of the
-    // previous step's stage, which the copies issued next overwrite.
-    if (step + 1 < steps) {
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  long long x = t[0];
+  const unsigned d0 = static_cast<unsigned>(x);
+  x = (x >> 32) + t[1];
+  const unsigned d1 = static_cast<unsigned>(x);
+  x = (x >> 32) + t[2];
+  const unsigned d2 = static_cast<unsigned>(x);
+  x = (x >> 32) + t[3];
+  const unsigned d3 = static_cast<unsigned>(x);
+  x = (x >> 32) + t[4];
+  w[0] = d0 | (static_cast<u64>(d1) << 32);
+  w[1] = d2 | (static_cast<u64>(d3) << 32);
+  w[2] = static_cast<u64>(x);
+}
+
+// w += beta * c, exact, where both are finite and nonzero and the
+// product's lsb lies at relative bit p >= 0 (rel = 128 - e_base); as in
+// deposit.cuh decode_product, anything else adds nothing (the dispatcher
+// overrides specials and checks the coverage).
+__device__ __forceinline__ void add_beta_c(u64 (&w)[3], long long beta,
+                                           long long cv, int rel) {
+  const int eb = static_cast<int>((beta >> 52) & 0x7FF);
+  const int ec = static_cast<int>((cv >> 52) & 0x7FF);
+  u64 mb = static_cast<u64>(beta) & exblas::kFracMask;
+  u64 mc = static_cast<u64>(cv) & exblas::kFracMask;
+  if (eb != 0) mb |= 1ULL << 52;
+  if (ec != 0) mc |= 1ULL << 52;
+  const int p = (eb > 1 ? eb : 1) + (ec > 1 ? ec : 1) - 2150 + rel;
+  if (eb == 0x7FF || ec == 0x7FF || mb == 0ULL || mc == 0ULL || p < 0 ||
+      p >= 192) {
+    return;
+  }
+  const u64 lo = mb * mc;
+  const u64 hi = __umul64hi(mb, mc);
+  const int s = p & 63;
+  const u64 y0 = lo << s;
+  const u64 y1 = s ? (hi << s) | (lo >> (64 - s)) : hi;
+  const u64 y2 = s ? hi >> (64 - s) : 0ULL;
+  const int q = p >> 6;
+  u64 x0 = q == 0 ? y0 : 0ULL;
+  u64 x1 = q == 0 ? y1 : (q == 1 ? y0 : 0ULL);
+  u64 x2 = q == 0 ? y2 : (q == 1 ? y1 : y0);
+  if ((beta ^ cv) < 0) {  // add the two's complement
+    x0 = ~x0 + 1ULL;
+    const u64 c0 = x0 == 0ULL ? 1ULL : 0ULL;
+    x1 = ~x1 + c0;
+    x2 = ~x2 + ((c0 != 0ULL && x1 == 0ULL) ? 1ULL : 0ULL);
+  }
+  add192(w, x0, x1, x2);
+}
+
+// The correctly rounded binary64 of three two's-complement words, bit p
+// of exponent p - offset_bits; an exact zero is +0.0.
+__device__ __forceinline__ unsigned long long round192(const u64 (&v)[3],
+                                                       int offset_bits) {
+  u64 w0 = v[0], w1 = v[1], w2 = v[2];
+  const bool negative = static_cast<long long>(w2) < 0;
+  if (negative) {
+    w0 = ~w0 + 1ULL;
+    const u64 c0 = w0 == 0ULL ? 1ULL : 0ULL;
+    w1 = ~w1 + c0;
+    w2 = ~w2 + ((c0 != 0ULL && w1 == 0ULL) ? 1ULL : 0ULL);
+  }
+  if ((w0 | w1 | w2) == 0ULL) return 0ULL;
+  const int t = w2 != 0ULL ? 2 : (w1 != 0ULL ? 1 : 0);
+  const int l = w0 != 0ULL ? 0 : (w1 != 0ULL ? 1 : 2);
+  const u64 top = t == 2 ? w2 : (t == 1 ? w1 : w0);
+  const u64 below = t == 2 ? w1 : (t == 1 ? w0 : 0ULL);
+  return exblas::round_window(negative, t, l, top, below, offset_bits);
+}
+
+// The wgmma of windows W.. for one k step: A's planes at a_addr, this
+// warpgroup's zero-padded B^T stack (planes kTLo..) at z.
+template <int W>
+__device__ __forceinline__ void window_products(int* acc, unsigned a_addr,
+                                                unsigned z) {
+  if constexpr (W < kNWin) {
+    constexpr int c0 = kWin[W];
+    constexpr int c1 = kWin[W + 1];
+    constexpr int s0 = first_s(c0);
+    constexpr int s1 = last_s(c1);
+#pragma unroll
+    for (int s = s0; s <= s1; ++s) {
+      exblas::wgmma_s8<16 * (c1 - c0)>(
+          acc + 8 * c0, exblas::wgmma_desc_sw32(a_addr + s * kPlaneA),
+          exblas::wgmma_desc_sw32(z + (c0 - s - kTLo) * kPlaneB));
     }
-    __syncthreads();
-    if (step + 2 < steps) load_stage((step + 2) % kStages, kk + 64);
-    const unsigned char* st = smem + (step % kStages) * kStage;
-    unsigned a[kS][4];
-#pragma unroll
-    for (int s = 0; s < kS; ++s) {
-      ldmatrix_x4(a[s], st + a_off + s * kBM * kRow);
+    window_products<W + 1>(acc, a_addr, z);
+  }
+}
+
+// One launch covers k elements [k0, k0 + 32 steps) of every output tile:
+// the class sums of that chunk, added to the words of the earlier chunks
+// (first == 0: words (3, m, n) holds them), then either the words of this
+// chunk (last == 0) or the rounded result (last != 0, with beta * c).
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm88_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b, int k0,
+                  int steps, long long m_tiles, long long n_tiles,
+                  const int* __restrict__ ea, const int* __restrict__ fb,
+                  const long long* __restrict__ c, long long beta,
+                  int beta_mode, long long m, long long n,
+                  u64* __restrict__ words, int first, int last,
+                  long long* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - (exblas::smem_u32(smem_raw) & 1023u)) & 1023u);
+  u64* full = reinterpret_cast<u64*>(smem + kStages * kStageBytes);
+  u64* empty = full + kStages;
+  // Groups of kGroupM row tiles sweep the column tiles.
+  const long long id = blockIdx.x;
+  const long long per_group = kGroupM * n_tiles;
+  const long long first_m = id / per_group * kGroupM;
+  const long long gm =
+      m_tiles - first_m < kGroupM ? m_tiles - first_m : kGroupM;
+  const long long in_group = id % per_group;
+  const int row0 = static_cast<int>((first_m + in_group % gm) * kBM);
+  const int col0 = static_cast<int>(in_group / gm * kBN);
+  // The warpgroup, warp-uniform for ptxas: setmaxnreg needs that.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7),
+                             0);
+  {  // the zero planes around each B^T stack stay zero
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < kStages * kStageBytes / 16; i += kThreads) {
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
     }
-#pragma unroll
-    for (int t = 0; t < kS; ++t) {
-      unsigned b[4];
-      ldmatrix_x4(b, st + b_off + t * kBN * kRow);
-#pragma unroll
-      for (int s = 0; s < kS; ++s) {
-        mma_s8(acc[s + t][0], a[s], b[0], b[1]);
-        mma_s8(acc[s + t][1], a[s], b[2], b[3]);
+    exblas::fence_proxy_async();
+  }
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      exblas::mbar_init(full + st, 1);
+      exblas::mbar_init(empty + st, kConsumerWarps);
+    }
+    exblas::mbar_init_fence();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    // The producer warpgroup: one thread keeps the ring full.
+    exblas::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      exblas::tma_prefetch(&map_a);
+      exblas::tma_prefetch(&map_b);
+      for (int step = 0; step < steps; ++step) {
+        const int st = step % kStages;
+        exblas::mbar_wait(empty + st, ((step / kStages) & 1) ^ 1);
+        exblas::mbar_expect_tx(full + st, kTmaBytes);
+        unsigned char* s = smem + st * kStageBytes;
+        const int kk = k0 + step * kBK;
+        exblas::tma_load_3d(s, &map_a, full + st, kk, row0, 0);
+        unsigned char* b = s + kS * kPlaneA - kTLo * kPlaneB;  // plane 0
+        exblas::tma_load_3d(b, &map_b, full + st, kk, col0, 0);
+        exblas::tma_load_3d(b + kHalfB, &map_b, full + st, kk, col0 + kWN, 0);
       }
     }
-    if ((kk + 32) % kc == 0 || step + 1 == steps) {
-      // widen into the int64 class sums (this block owns its tile)
-      const bool first = kk + 32 <= kc;
-      const int g = lane >> 2, tq = lane & 3;
+  } else {
+    // A consumer warpgroup: columns [col0 + 16 wg, +16) of the tile.
+    exblas::setmaxnreg_inc<232>();
+    int acc[kCls * 8];
 #pragma unroll
-      for (int c = 0; c < kCls; ++c) {
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const long long row = row0 + wm * 16 + g + (i >= 2 ? 8 : 0);
-            const long long col = col0 + wn * 16 + ni * 8 + tq * 2 + (i & 1);
-            long long* p = cls + (c * rows + row) * n_pad + col;
-            *p = (first ? 0LL : *p) + acc[c][ni][i];
-            acc[c][ni][i] = 0;
-          }
-        }
+    for (int i = 0; i < kCls * 8; ++i) acc[i] = 0;
+    const unsigned base = exblas::smem_u32(smem);
+    for (int step = 0; step < steps; ++step) {
+      const int st = step % kStages;
+      exblas::mbar_wait(full + st, (step / kStages) & 1);
+      const unsigned a_addr = base + st * kStageBytes;
+      exblas::wgmma_fence();
+      window_products<0>(acc, a_addr, a_addr + kS * kPlaneA + wg * kHalfB);
+      exblas::wgmma_commit();
+      // The previous step's products are done: its stage may be refilled.
+      exblas::wgmma_wait<1>();
+      if (step > 0 && (threadIdx.x & 31) == 0) {
+        exblas::mbar_arrive(empty + (step - 1) % kStages);
       }
+    }
+    exblas::wgmma_wait<0>();
+    // The epilogue reads the class sums back from the ring, which every
+    // product of both warpgroups is done with, so that no register spills.
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    int* stash = reinterpret_cast<int*>(smem) + threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < kCls * 8; ++i) stash[i * 256] = acc[i];
+    // Thread (warp wi, lane 4g + tq) holds, for e = 4j + i, row
+    // 16 wi + g + 8 (i >> 1), column 8j + 2tq + (i & 1) of each class.
+    const int wi = (threadIdx.x >> 5) & 3;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int tq = threadIdx.x & 3;
+    const long long mn = m * n;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const long long row = row0 + wi * 16 + g + ((e & 2) ? 8 : 0);
+      const long long col =
+          col0 + wg * kWN + (e >> 2) * 8 + 2 * tq + (e & 1);
+      if (row >= m || col >= n) continue;
+      u64 w[3];
+      class_words(stash, e, w);
+      const long long idx = row * n + col;
+      if (!first) add192(w, words[idx], words[mn + idx], words[2 * mn + idx]);
+      if (!last) {
+        words[idx] = w[0];
+        words[mn + idx] = w[1];
+        words[2 * mn + idx] = w[2];
+        continue;
+      }
+      const int rel = kRel0 - (ea[row] + fb[col] + 2);
+      if (beta_mode != 0) add_beta_c(w, beta, c[idx], rel);
+      out[idx] = static_cast<long long>(round192(w, rel));
     }
   }
 }
 
-}  // namespace r88
+}  // namespace wg88
+
+// ---------------------------------------------------------------------------
+// The digit planes
+// ---------------------------------------------------------------------------
 
 // Balanced signed base-256 digits of x (rows, k), row-major int64 bits,
-// anchored per row (mxu.cuh, the port of make_digits): digit u of
-// element (r, c)
-// goes to out[u][r][c] of (n_slices + 1, rows_pad, k_pad) int8, zeros
-// beyond (rows, k).  One thread per output position, c fastest.
+// anchored per row (mxu.cuh's excess-128 recode, the port of
+// make_digits): digit u of element (r, c) goes to out[u][r][c] of
+// (n_slices + 1, rows_pad, k_pad) int8, zeros beyond (rows, k).  A thread
+// recodes four k-consecutive elements and stores each plane's four digits
+// as one 32-bit word; kNs8 is the main path's n_slices = 8.
+template <bool kNs8>
 __global__ void __launch_bounds__(256)
     mxu_digits_kernel(const long long* __restrict__ x, long long rows,
                       long long k, const long long* __restrict__ anchors,
                       int n_slices, long long rows_pad, long long k_pad,
                       int8_t* __restrict__ out) {
-  const long long plane = rows_pad * k_pad;
+  const long long quads = k_pad / 4;
+  const long long step = rows_pad * quads;  // a plane, in 32-bit words
   for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       e < plane; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long r = e / k_pad;
-    const long long c = e - r * k_pad;
-    long long bits = 0;
-    int anchor = 0;
-    if (r < rows && c < k) {
-      bits = x[r * k + c];
-      anchor = static_cast<int>(anchors[r]);
+       e < step; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = e / quads;
+    const long long c = (e - r * quads) * 4;
+    long long bits[4] = {0, 0, 0, 0};
+    const int anchor = r < rows ? static_cast<int>(anchors[r]) : 0;
+    if (r < rows) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c + j < k) bits[j] = __ldg(x + r * k + c + j);
+      }
     }
-    exblas::balanced_digits(bits, anchor, n_slices, [&](int u, int digit) {
-      out[u * plane + e] = static_cast<int8_t>(digit);
-    });
+    unsigned* dst = reinterpret_cast<unsigned*>(out) + e;
+    if (kNs8) {
+      double s1, s2;
+      exblas::window_scales8(anchor, s1, s2);
+      unsigned long long w[4];
+      int carry[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w[j] = exblas::excess8(bits[j], s1, s2, carry[j]);
+      }
+      unsigned p[9];
+      exblas::pack_digits8(w, carry, p);
+#pragma unroll
+      for (int u = 0; u < 9; ++u) dst[u * step] = p[u];
+    } else {
+      const int off = exblas::window_offset(anchor, n_slices);
+      exblas::ExcessFrame f[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        f[j] = exblas::excess_frame(bits[j], off, n_slices);
+      }
+      for (int u = 0; u <= n_slices; ++u) {
+        unsigned word = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int d = exblas::excess_digit(f[j], n_slices, u);
+          word |= (static_cast<unsigned>(d) & 0xFFu) << (8 * j);
+        }
+        dst[u * step] = word;
+      }
+    }
   }
 }
 
@@ -345,35 +565,68 @@ int grid_for(long long total, int threads, int* grid) {
   return 0;
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (no link against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The TMA map of nine digit planes (9, rows_pad, k_pad) int8: boxes of
+// 32 k x box_rows rows x 9 planes in the 32-byte swizzle.
+int plane_map(CUtensorMap* map, const void* planes, long long rows_pad,
+              long long k_pad, unsigned box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k_pad),
+                              static_cast<cuuint64_t>(rows_pad),
+                              static_cast<cuuint64_t>(wg88::kS)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k_pad),
+                                 static_cast<cuuint64_t>(rows_pad * k_pad)};
+  const cuuint32_t box[3] = {wg88::kBK, box_rows, wg88::kS};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(planes), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Class sums of `rows` output rows (a multiple of 32; of 64 for the rung
-// (8, 8) kernel) against all n_pad columns: ad points at the first row of digit plane 0 of A (planes
-// plane_a bytes apart), bd at B^T's digit plane 0 (planes plane_b apart);
-// both k_pad-contiguous, k_pad a multiple of 32, kc a multiple of 32.
-// cls: int64 (sa+sb+1, rows, n_pad), written whole.  Rung (8, 8) on
-// whole 64 x 32 tiles runs the staged kernel, every other case the generic
-// one.
+// Class sums of `rows` output rows (a multiple of 32) against all n_pad
+// columns, for every rung but (8, 8): ad points at the first row of digit
+// plane 0 of A (planes plane_a bytes apart), bd at B^T's digit plane 0
+// (planes plane_b apart); both k_pad-contiguous, k_pad a multiple of 32,
+// kc a multiple of 32.  cls: int64 (sa+sb+1, rows, n_pad), written whole.
 int mxu_classes_cuda(const void* ad, const void* bd, int sa, int sb,
                      long long plane_a, long long plane_b, long long rows,
                      long long n_pad, long long k_pad, long long kc,
                      void* cls, void* stream) {
-  if (sa == 8 && sb == 8 && rows % r88::kBM == 0 && n_pad % r88::kBN == 0) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        r88::class_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        r88::kSmem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    const dim3 grid88(static_cast<unsigned>(n_pad / r88::kBN),
-                      static_cast<unsigned>(rows / r88::kBM));
-    r88::class_kernel<<<grid88, r88::kThreads, r88::kSmem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(ad), static_cast<const int8_t*>(bd),
-        plane_a, plane_b, rows, n_pad, k_pad, kc,
-        static_cast<long long*>(cls));
-    return static_cast<int>(cudaGetLastError());
-  }
   const dim3 grid(static_cast<unsigned>(n_pad / kTile),
                   static_cast<unsigned>(rows / kTile),
                   static_cast<unsigned>((sa + sb + 1 + kG - 1) / kG));
@@ -383,18 +636,67 @@ int mxu_classes_cuda(const void* ad, const void* bd, int sa, int sb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Rung (8, 8): k elements [k0, k0 + k_len) of every element of the
+// (m, n) result.  ad: A's digit planes (9, m_pad, k_pad) int8, bd: B^T's
+// (9, n_pad, k_pad); m_pad a multiple of 64, n_pad of 32, k0 and k_len of
+// 32, k_len at most gemm_mxu.py's exact chunk.  ea (m,), fb (n,) int32
+// anchors; c (m, n) float64 bits (unused when beta_mode == 0).  words:
+// (3, m, n) int64, read unless first, written unless last (null for one
+// chunk); out (m, n) int64 bits, written when last.
+int mxu_gemm88_cuda(const void* ad, const void* bd, long long m_pad,
+                    long long n_pad, long long k_pad, long long k0,
+                    long long k_len, const void* ea, const void* fb,
+                    const void* c, long long beta, int beta_mode, long long m,
+                    long long n, void* words, int first, int last, void* out,
+                    void* stream) {
+  if (m_pad % wg88::kBM || n_pad % wg88::kBN || k0 % wg88::kBK ||
+      k_len % wg88::kBK || k_len <= 0 || k0 + k_len > k_pad ||
+      k_pad > 0x7FFFFFFFLL || m_pad > 0x7FFFFFFFLL || n_pad > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wg88::gemm88_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg88::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap map_a, map_b;
+  int err = plane_map(&map_a, ad, m_pad, k_pad, wg88::kBM);
+  if (err == 0) err = plane_map(&map_b, bd, n_pad, k_pad, wg88::kWN);
+  if (err != 0) return err;
+  const long long m_tiles = m_pad / wg88::kBM;
+  const long long n_tiles = n_pad / wg88::kBN;
+  wg88::gemm88_kernel<<<static_cast<unsigned>(m_tiles * n_tiles),
+                        wg88::kThreads, wg88::kSmem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_b, static_cast<int>(k0),
+      static_cast<int>(k_len / wg88::kBK), m_tiles, n_tiles,
+      static_cast<const int*>(ea), static_cast<const int*>(fb),
+      static_cast<const long long*>(c), beta, beta_mode, m, n,
+      static_cast<unsigned long long*>(words), first, last,
+      static_cast<long long*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Digit planes of x (rows, k) int64 bits, row-major, anchored by the int64
-// anchors (rows,): out int8 (n_slices + 1, rows_pad, k_pad), written whole.
+// anchors (rows,): out int8 (n_slices + 1, rows_pad, k_pad), written whole;
+// k_pad a multiple of 4.
 int mxu_digits_cuda(const void* x, long long rows, long long k,
                     const void* anchors, int n_slices, long long rows_pad,
                     long long k_pad, void* out, void* stream) {
+  if (k_pad % 4) return static_cast<int>(cudaErrorInvalidValue);
   int grid = 0;
-  const int err = grid_for(rows_pad * k_pad, 256, &grid);
+  const int err = grid_for(rows_pad * k_pad / 4, 256, &grid);
   if (err != 0) return err;
-  mxu_digits_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(x), rows, k,
-      static_cast<const long long*>(anchors), n_slices, rows_pad, k_pad,
-      static_cast<int8_t*>(out));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* px = static_cast<const long long*>(x);
+  const auto* pa = static_cast<const long long*>(anchors);
+  auto* po = static_cast<int8_t*>(out);
+  if (n_slices == 8) {
+    mxu_digits_kernel<true><<<grid, 256, 0, s>>>(px, rows, k, pa, n_slices,
+                                                 rows_pad, k_pad, po);
+  } else {
+    mxu_digits_kernel<false><<<grid, 256, 0, s>>>(px, rows, k, pa, n_slices,
+                                                  rows_pad, k_pad, po);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -417,6 +719,25 @@ int mxu_round_cuda(const void* cls, int n_cls, long long rows,
       static_cast<const long long*>(c), beta, beta_mode, m_rows, n, nl, rel0,
       static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[0..3] = registers a thread, local (spilled) bytes, static and
+// dynamic shared bytes (as set before its first launch) of kernel
+// `which`: 0 the rung (8, 8) class kernel, 1 the digit kernel at
+// n_slices = 8, 2 the digit kernel at other n_slices.
+int gemm_mxu_attrs(int which, void* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (which == 0) err = cudaFuncGetAttributes(&a, wg88::gemm88_kernel);
+  if (which == 1) err = cudaFuncGetAttributes(&a, mxu_digits_kernel<true>);
+  if (which == 2) err = cudaFuncGetAttributes(&a, mxu_digits_kernel<false>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* o = static_cast<int*>(out);
+  o[0] = a.numRegs;
+  o[1] = static_cast<int>(a.localSizeBytes);
+  o[2] = static_cast<int>(a.sharedSizeBytes);
+  o[3] = a.maxDynamicSharedSizeBytes;
+  return 0;
 }
 
 }  // extern "C"

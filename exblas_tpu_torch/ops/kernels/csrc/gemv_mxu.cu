@@ -30,16 +30,24 @@
 // folded byte lanes with an f32 selection matmul and spilled int32 sums
 // into 20-bit limbs -- all for its int32-only vector unit; none of it is
 // needed here:
-//   * gemv_mxu_class_kernel: a block owns 16 rows and one span of k.  Per
-//     k step of 64 each thread loads 4 elements of A, recodes them in
-//     registers and stores their digits as int8 planes in shared memory
-//     (A's planes never reach device memory: at rung (16, 7) they would be
-//     65 bytes per element); warp w then runs mma.sync.m16n8k32 s8 x s8 ->
-//     s32 of planes w, w + 8, ... against the z-digit fragments, read from
-//     L2.  The int32 sums are exact over k_chunk <= 2^16 elements
-//     (|A_s Z_t| <= 2^14) and are then widened into the block's int64
-//     class sums in shared memory, which go to device memory by 64-bit
-//     integer atomics (k spans of one row tile combine there);
+//   * rung (2, 2), the benchmark configuration's: v22::class_kernel.
+//     Each lane copies its own 16 doubles a k step into a private
+//     cp.async ring (three steps in flight, no barrier in the k loop) and
+//     recodes them in registers (mxu.cuh excess8) straight into the nine
+//     mma A fragments; 18 mma.sync a step against the z-digit fragments,
+//     read from L2.  Bound by A's bytes, not by the tensor cores;
+//   * the wider rungs, gemv_mxu_class_kernel: a block owns 16 rows and one
+//     span of k.  Per k step of 64 each thread loads 4 elements of A,
+//     recodes them (mxu.cuh excess_frame) and stores each plane's four
+//     digits as one word in shared memory (A's planes never reach device
+//     memory: at rung (16, 7) they would be 65 bytes per element); warp w
+//     then runs mma.sync.m16n8k32 s8 x s8 -> s32 of planes w, w + 8, ...
+//     against the z-digit fragments.  Its accumulators (planes x z-digit
+//     tiles) would not fit the registers of one warp per plane set.
+//   Both keep int32 pair sums, exact over k_chunk <= 2^16 elements
+//   (|A_s Z_t| <= 2^14), and widen them into the block's int64 class sums
+//   in shared memory, which go to device memory by 64-bit integer atomics
+//   (k spans of one row tile combine there);
 //   * gemv_mxu_round_kernel: a thread per row adds its class sums at 8-bit
 //     spacing into a private int64 accumulator (round.cuh add_scaled) and
 //     rounds it once (round_limbs) with the row's exponent put back -- the
@@ -50,8 +58,9 @@
 //     no coverage, and rounds there, counting beta * y's specials.
 // Bound: A's bytes, 0.160 ms at 8192^2; rung (2, 2) does 81 int8 products
 // of m x k (1.1e10 operations, 5.5 us at 1,979 TOP/s) and even rung
-// (16, 7), about 2.5e11, stays near the bytes.  The recode (a dozen
-// integer operations per digit) is this simple version's real cost.
+// (16, 7), about 2.5e11, stays near the bytes.  What costs is the recode
+// (about 25 integer operations an element at rung (2, 2)) and keeping A's
+// bytes in flight.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -230,15 +239,23 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < 4; ++i) acc[p][nt][i] = 0;
     }
   }
+  const int off = exblas::window_offset(anchor, R::kNs);
   load(k0);
   long long run = 0;
   for (long long kk = k0; kk < k1; kk += kKs) {
     __syncthreads();  // every warp is done reading the previous planes
+    exblas::ExcessFrame f[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      exblas::balanced_digits(v[j], anchor, R::kNs, [&](int u, int digit) {
-        own[u * R::kPlaneBytes + j] = static_cast<unsigned char>(digit);
-      });
+    for (int j = 0; j < 4; ++j) f[j] = exblas::excess_frame(v[j], off, R::kNs);
+#pragma unroll
+    for (int u = 0; u <= R::kNs; ++u) {
+      unsigned word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = exblas::excess_digit(f[j], R::kNs, u);
+        word |= (static_cast<unsigned>(d) & 0xFFu) << (8 * j);
+      }
+      *reinterpret_cast<unsigned*>(own + u * R::kPlaneBytes) = word;
     }
     __syncthreads();
     if (kk + kKs < k1) load(kk + kKs);  // in flight during the products
@@ -301,6 +318,257 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 }
+
+// Rung (2, 2), the benchmark configuration's: A's digits are made in
+// registers straight into the mma A fragments.  Lane (g, tq) of a warp
+// holds, for each k step of 32, rows g and g + 8 at k 8p + 2tq + {0, 1}
+// for p = 0..3, so that the four lanes of a row copy 64 contiguous bytes
+// a piece: fragment positions 4tq..4tq+3 take k 2tq, 2tq+1, 8+2tq, 9+2tq
+// and positions 16+4tq..16+4tq+3 the same plus 16 (the z fragments are
+// gathered in the same order, so the sums are those of k in order).  A
+// lane copies its own 16 doubles into a private ring of kStages steps in
+// shared memory (cp.async, zero-filled past the span), so two steps are
+// in flight while it computes one, and no barrier is needed: a lane reads
+// only what it copied.  Twelve warps (384 threads, at most 168 registers
+// each) measured fastest; eight were about 14% slower (PERF.md).  The
+// recode (excess8) packs each plane's four digits per row and half into
+// one fragment register: nine A fragments, 36 registers, then 18 mma.sync
+// a step (z digits 0-7 and digit 8).  The warps of a block share its 16
+// rows and take every kWarps-th k step of its span; they combine their
+// int32 pair sums once, at the end (or every kc k of their own), through
+// the block's int64 class sums in shared memory.
+namespace v22 {
+
+constexpr int kNs = 8;                 // digits of A below its carry
+constexpr int kNa = kNs + 1;           // digits of A, and of z
+constexpr int kCls = 2 * kNa - 1;
+constexpr int kWarps = 12;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStride = 32 * kWarps;   // k between a warp's steps
+constexpr int kStages = 3;             // k steps a lane's ring holds
+constexpr int kPieces = 8;             // 16-byte pieces a lane copies a step
+constexpr int kStageBytes = kPieces * kThreads * 16;
+constexpr int kRing = kStages * kStageBytes;  // 131,072
+constexpr int kSmem = kRing + kRows * kCls * 8;
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// cls (m, 17) int64, zeroed by the caller, += the class sums of rows
+// [row0, row0 + 16) over k span [k0, k1).  zd: z digits (9, k_pad) int8,
+// zero past k.
+__global__ void __launch_bounds__(kThreads, 1)
+    class_kernel(const long long* __restrict__ a, const int* __restrict__ ea,
+                 const int8_t* __restrict__ zd, long long m, long long k,
+                 long long k_pad, int splits, long long span, long long kc,
+                 long long* __restrict__ cls) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* cls_s = reinterpret_cast<long long*>(smem + kRing);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const long long row0 = static_cast<long long>(blockIdx.x / splits) * kRows;
+  const long long k0 = static_cast<long long>(blockIdx.x % splits) * span;
+  const long long k1 = k0 + span < k ? k0 + span : k;
+  for (int j = threadIdx.x; j < kRows * kCls; j += kThreads) cls_s[j] = 0;
+  __syncthreads();
+
+  const long long* src[2];
+  bool ok[2], aligned[2];
+  double s1[2], s2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = row0 + g + 8 * h;
+    ok[h] = row < m;
+    src[h] = a + (ok[h] ? row : 0) * k + 2 * tq;
+    aligned[h] = (reinterpret_cast<uintptr_t>(src[h]) & 15u) == 0u;
+    exblas::window_scales8(ok[h] ? ea[row] : 0, s1[h], s2[h]);
+  }
+  const unsigned ring = exblas::smem_u32(smem) + threadIdx.x * 16u;
+  // This warp's steps: kw + kStride i, i < n.
+  const long long kw = k0 + 32 * warp;
+  const int n =
+      kw < k1 ? static_cast<int>((k1 - kw + kStride - 1) / kStride) : 0;
+  auto copy_step = [&](int i) {
+    const long long kk = kw + static_cast<long long>(kStride) * i;
+    const unsigned st = ring + (i % kStages) * kStageBytes;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const long long e = kk + 8 * p + 2 * tq;
+        const long long left = ok[h] ? k1 - e : 0;
+        const int nv = left <= 0 ? 0 : (left >= 2 ? 2 : 1);
+        const unsigned dst = st + (h * 4 + p) * (kThreads * 16);
+        const long long* from = src[h] + kk + 8 * p;
+        if (aligned[h]) {
+          cp_async16(dst, nv > 0 ? from : a, 8 * nv);
+        } else {
+          cp_async8(dst, nv > 0 ? from : a, nv > 0 ? 8 : 0);
+          cp_async8(dst + 8, nv > 1 ? from + 1 : a, nv > 1 ? 8 : 0);
+        }
+      }
+    }
+  };
+
+  int acc[kNa][2][4];
+#pragma unroll
+  for (int u = 0; u < kNa; ++u) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[u][0][i] = acc[u][1][i] = 0;
+  }
+  auto widen = [&]() {
+#pragma unroll
+    for (int u = 0; u < kNa; ++u) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = nt * 8 + tq * 2 + (i & 1);
+          const int rr = g + (i >= 2 ? 8 : 0);
+          if (t < kNa && acc[u][nt][i] != 0) {
+            atomicAdd(reinterpret_cast<unsigned long long*>(
+                          cls_s + rr * kCls + u + t),
+                      static_cast<unsigned long long>(
+                          static_cast<long long>(acc[u][nt][i])));
+          }
+          acc[u][nt][i] = 0;
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n) copy_step(i);
+    cp_async_commit();
+  }
+  long long run = 0;
+  for (int i = 0; i < n; ++i) {
+    if (i + kStages - 1 < n) copy_step(i + kStages - 1);
+    cp_async_commit();
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+    const unsigned char* st =
+        smem + (i % kStages) * kStageBytes + threadIdx.x * 16;
+    long long v[16];
+#pragma unroll
+    for (int q = 0; q < kPieces; ++q) {
+      const longlong2 pair =
+          *reinterpret_cast<const longlong2*>(st + q * (kThreads * 16));
+      v[2 * q] = pair.x;
+      v[2 * q + 1] = pair.y;
+    }
+    // v[8h + 2p + j]: row g + 8h, k 8p + 2tq + j.  Fragment register
+    // h + 2 half holds row g + 8h at v[8h + 4 half + 0..3].
+    unsigned af[kNa][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        unsigned long long x[4];
+        int carry[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          x[j] = exblas::excess8(v[8 * h + 4 * half + j], s1[h], s2[h],
+                                 carry[j]);
+        }
+        unsigned p[kNa];
+        exblas::pack_digits8(x, carry, p);
+#pragma unroll
+        for (int u = 0; u < kNa; ++u) af[u][h + 2 * half] = p[u];
+      }
+    }
+    const long long kk = kw + static_cast<long long>(kStride) * i;
+    unsigned zb[2][2];  // [tile][b0, b1]: z digits g and 8 + g
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      zb[nt][0] = zb[nt][1] = 0u;
+      if (nt == 0 || g == 0) {
+        const uint4* zp =
+            reinterpret_cast<const uint4*>(zd + (8 * nt + g) * k_pad + kk);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const uint4 w = __ldg(zp + half);  // k 16 half .. 16 half + 15
+          zb[nt][half] = __byte_perm(tq >> 1 ? w.y : w.x, tq >> 1 ? w.w : w.z,
+                                     tq & 1 ? 0x7632 : 0x5410);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kNa; ++u) {
+      exblas::mma_s8(acc[u][0], af[u], zb[0][0], zb[0][1]);
+      exblas::mma_s8(acc[u][1], af[u], zb[1][0], zb[1][1]);
+    }
+    run += 32;
+    if (run >= kc) {
+      widen();
+      run = 0;
+    }
+  }
+  widen();
+  __syncthreads();
+  for (int j = threadIdx.x; j < kRows * kCls; j += kThreads) {
+    const long long i = row0 + j / kCls;
+    if (i < m && cls_s[j] != 0) {
+      atomicAdd(
+          reinterpret_cast<unsigned long long*>(cls + i * kCls + j % kCls),
+          static_cast<unsigned long long>(cls_s[j]));
+    }
+  }
+}
+
+// One block of 16 rows per row tile when the tiles fill the card, else
+// the k spans that fill it once.
+cudaError_t splits_for(long long tiles, long long k, long long* splits,
+                       long long* span) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const long long steps = k > 0 ? (k + kKs - 1) / kKs : 1;
+  long long s = (sms + tiles - 1) / tiles;
+  if (s > steps) s = steps;
+  if (s < 1) s = 1;
+  *span = (steps + s - 1) / s * kKs;
+  *splits = k > 0 ? (k + *span - 1) / *span : 1;
+  if (tiles * *splits > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+int launch(const long long* a, const int* ea, const int8_t* zd, long long m,
+           long long k, long long k_pad, long long kc, long long* cls,
+           cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      class_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  long long splits = 0, span = 0;
+  const long long tiles = (m + kRows - 1) / kRows;
+  const cudaError_t err = splits_for(tiles, k, &splits, &span);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  class_kernel<<<static_cast<unsigned>(tiles * splits), kThreads, kSmem,
+                 stream>>>(a, ea, zd, m, k, k_pad, static_cast<int>(splits),
+                           span, kc, cls);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace v22
 
 template <int NWA, int NWZ>
 int launch_classes(const long long* a, const int* ea, const int8_t* zd,
@@ -466,7 +734,9 @@ int gemv_mxu_classes_cuda(const void* a, const void* ea, const void* zd,
   if (nwa == (A) && nwz == (Z)) {                                        \
     return launch_classes<A, Z>(pa, pe, pz, m, k, k_pad, kc, pc, s);     \
   }
-  EXBLAS_GEMV_RUNG(2, 2)
+  if (nwa == 2 && nwz == 2) {
+    return v22::launch(pa, pe, pz, m, k, k_pad, kc, pc, s);
+  }
   EXBLAS_GEMV_RUNG(3, 3)
   EXBLAS_GEMV_RUNG(4, 4)
   EXBLAS_GEMV_RUNG(5, 4)
@@ -495,6 +765,26 @@ int gemv_mxu_round_cuda(const void* cls, int n_cls, const void* ea,
       static_cast<const int*>(f), static_cast<const long long*>(y), beta,
       beta_mode, m, nl, rel0, static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[0..3] = registers a thread, local (spilled) bytes, static and
+// dynamic shared bytes (as set before its first launch) of kernel
+// `which`: 0 the rung (2, 2) class kernel, 1 the staged class kernel of
+// rung (16, 7).
+int gemv_mxu_attrs(int which, void* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (which == 0) err = cudaFuncGetAttributes(&a, v22::class_kernel);
+  if (which == 1) {
+    err = cudaFuncGetAttributes(&a, gemv_mxu_class_kernel<16, 7>);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* o = static_cast<int*>(out);
+  o[0] = a.numRegs;
+  o[1] = static_cast<int>(a.localSizeBytes);
+  o[2] = static_cast<int>(a.sharedSizeBytes);
+  o[3] = a.maxDynamicSharedSizeBytes;
+  return 0;
 }
 
 }  // extern "C"

@@ -18,12 +18,15 @@ and its XLA-level preparation):
 
 :func:`gemm_bits_mxu_cuda` is the port of ``gemm_bits_mxu``: on CUDA
 bit tensors it launches the digit kernel (the preparation the JAX package
-left to XLA), the class kernel and the rounding kernel, with no fallback,
-and counts one launch per call.  :func:`gemm_bits_mxu_torch` is its plain
-version: :func:`mxu_operands`, then the class sums by float64 matrix
+left to XLA) and, at rung (8, 8), the wgmma class kernel that rounds in its
+epilogue, one launch a chunk of :data:`K_CHUNK` k elements; at the other
+rungs the class kernel and the rounding kernel.  No fallback; it counts one
+launch per call.  :func:`gemm_bits_mxu_torch` is its plain version:
+:func:`mxu_operands`, then the class sums chunk by chunk by float64 matrix
 products of the digit planes, which are exact (every partial sum is an
 integer below 2^53: ``|M_c| < 2^14 * 49 * k``), then the same combination
-and rounding.
+and rounding.  :func:`excess_digits` is the plain model of the kernels'
+recode (``csrc/mxu.cuh``), held against :func:`make_digits`.
 """
 
 from __future__ import annotations
@@ -40,14 +43,31 @@ from . import _build
 from ._build import ptr, stream_of
 from .gemm_kernel import _beta_code, check_cuda_bits
 
-__all__ = ["analyze_gemm_operands", "make_digits", "mxu_l_rel",
-           "MXU_BETA_HEAD", "MxuOperands", "mxu_operands",
-           "mxu_operands_cuda", "gemm_bits_mxu_cuda", "gemm_bits_mxu_torch"]
+__all__ = ["analyze_gemm_operands", "make_digits", "excess_digits",
+           "exact_chunk", "mxu_l_rel", "MXU_BETA_HEAD", "MxuOperands",
+           "mxu_operands", "mxu_operands_cuda", "gemm_bits_mxu_cuda",
+           "gemm_bits_mxu_torch"]
 
 TILE = 32           # output tile of the class kernel; k step of one mma
 ROW_TILE = 64       # rows of the rung (8, 8) class kernel's tile
 MAX_REL_LIMBS = 48  # kMaxRel in csrc/gemm_mxu.cu
-CLS_BYTES = 1 << 32  # int64 class sums held at once; more rows run in turns
+# int64 class sums the other rungs hold at once; more rows run in turns
+CLS_BYTES = 1 << 32
+
+
+def exact_chunk(sa: int, sb: int) -> int:
+    """The most k elements (a power of two) over which rung (sa, sb)'s
+    int32 class sums are exact: a class takes at most min(sa, sb) + 1
+    digit pairs of |d_s d_t| <= 2^14 per k element, so
+    ``kc * (min(sa, sb) + 1) * 2^14 < 2^31``."""
+    allowed = ((1 << 31) - 1) // ((min(sa, sb) + 1) << 14)
+    return 1 << (allowed.bit_length() - 1)
+
+
+# k elements a launch of the rung (8, 8) class kernel covers: its class
+# sums stay in int32 registers over one chunk.  No bit depends on it; the
+# tests shrink it to show that.
+K_CHUNK = exact_chunk(8, 8)
 
 # Bits of headroom above the anchor that beta*C products may occupy (the
 # three extra limbs of mxu_l_rel minus two limbs' carry slack).
@@ -123,10 +143,68 @@ def make_digits(bits, anchors, n_slices: int, axis: int):
     return torch.stack(out)
 
 
+def _excess_limb(nb, i: int):
+    """Limb i (bytes 4i..4i+3) of sum_{j < nb} 128 * 256^j, per element."""
+    limb = torch.zeros_like(nb)
+    for j in range(4):
+        limb = limb + torch.where(4 * i + j < nb, 0x80 << (8 * j), 0)
+    return limb
+
+
+def _sext8(byte):
+    return byte - ((byte >> 7) << 8)
+
+
+def excess_digits(bits, anchors, n_slices: int, axis: int):
+    """The kernels' recode (``csrc/mxu.cuh``), in plain PyTorch: the
+    digits of :func:`make_digits` as int8 (n_slices + 1, *bits.shape).
+
+    V, the element's window integer (x over its lowest digit weight,
+    truncated toward zero below the window), plus sum_{u=1..ns} 128 *
+    256^(ns - u) is W: byte j of W XOR 0x80 is digit ns - j, and
+    W >> 8 ns is the carry digit.  W is formed on a frame of at most 15
+    bytes from the byte b0 where the significand's lowest bit lands (here
+    as four 32-bit limbs with carries); outside it every byte is 0x80."""
+    sign, expf, mant = decode_fields(bits)
+    anc = (anchors[:, None] if axis == 0 else anchors[None, :]).to(torch.int64)
+    sh = expf.clamp(min=1) + (8 * n_slices - 1076) - anc
+    f = torch.where(expf == 0x7FF, 0, mant)
+    up = sh >= 0
+    b0 = torch.where(up, sh >> 3, 0)
+    f = torch.where(up, f << (sh & 7), f >> (-sh).clamp(0, 63))
+    beyond = b0 >= n_slices
+    f = torch.where(beyond, 0, f)
+    b0 = torch.where(beyond, 0, b0)
+    nb = (n_slices - b0).clamp(max=15)
+    sgn = 1 - 2 * sign
+    limbs, carry = [], torch.zeros_like(f)
+    for i in range(4):
+        fl = (f >> (32 * i)) & 0xFFFFFFFF if i < 2 else 0
+        t = _excess_limb(nb, i) + sgn * fl + carry
+        limbs.append(t & 0xFFFFFFFF)
+        carry = t >> 32
+    w = torch.stack(limbs, dim=-1)
+
+    def byte(j):  # byte j (0 <= j < 16) of W's two's complement
+        jj = j.clamp(0, 15)
+        limb = w.gather(-1, (jj >> 2).unsqueeze(-1)).squeeze(-1)
+        return (limb >> (8 * (jj & 3))) & 0xFF
+
+    out = []
+    for u in range(n_slices + 1):
+        if u == 0:
+            d = torch.where(b0 + nb == n_slices, _sext8(byte(nb)), 0)
+        else:
+            i = n_slices - u - b0
+            d = torch.where((i >= 0) & (i < nb), _sext8(byte(i) ^ 0x80), 0)
+        out.append(d.to(torch.int8))
+    return torch.stack(out)
+
+
 def _spill_run(sa: int, sb: int) -> int:
-    """k elements between widenings of the int32 class sums: a class takes
-    (min(sa, sb) + 1) digit pairs of |d_s d_t| <= 2^14 per k element, so
-    ``run * (min + 1) <= 36000`` keeps it below 2^29.2."""
+    """The JAX package's k elements between spills of its int32 class sums
+    (``run * (min(sa, sb) + 1) <= 36000`` keeps them below 2^29.2); the
+    class kernel of the rungs other than (8, 8) widens on it too."""
     allowed = 36000 // (min(sa, sb) + 1)
     return max(256, 1 << (allowed.bit_length() - 1))
 
@@ -234,13 +312,77 @@ def _rel_layout(ops: MxuOperands, beta_mode: str):
     return rel0, ops.sa + ops.sb + 1, nl
 
 
+def _gemm88_cuda(ops: MxuOperands, c_bits, mode: int, beta: int,
+                 out) -> None:
+    """Rung (8, 8): the wgmma class kernel rounds in its epilogue, one
+    launch a chunk of K_CHUNK k elements; more than one chunk carries each
+    element's three exact words in device memory."""
+    if K_CHUNK % TILE or not 0 < K_CHUNK <= exact_chunk(8, 8):
+        raise ValueError(f"gemm_bits_mxu_cuda: K_CHUNK {K_CHUNK} is not a "
+                         f"multiple of {TILE} in (0, {exact_chunk(8, 8)}]")
+    _, m_pad, k_pad = ops.ad.shape
+    n_pad = ops.bd.shape[1]
+    m, n = ops.m, ops.n
+    dev = out.device
+    words = (torch.empty((3, m, n), dtype=torch.int64, device=dev)
+             if k_pad > K_CHUNK else None)
+    lib = _build.library()
+    stream = stream_of(dev)
+    for k0 in range(0, k_pad, K_CHUNK):
+        k_len = min(K_CHUNK, k_pad - k0)
+        err = lib.mxu_gemm88_cuda(
+            ptr(ops.ad), ptr(ops.bd), m_pad, n_pad, k_pad, k0, k_len,
+            ptr(ops.ea), ptr(ops.fb), ptr(c_bits) if mode else None, beta,
+            mode, m, n, ptr(words) if words is not None else None,
+            int(k0 == 0), int(k0 + k_len == k_pad), ptr(out), stream)
+        _build.check(err, "mxu_gemm88_cuda")
+
+
+def _gemm_classes_cuda(ops: MxuOperands, c_bits, mode: int, beta: int,
+                       beta_mode: str, out) -> None:
+    """The other rungs: int64 class sums in device memory, taken in turns
+    of rows below CLS_BYTES, then the rounding kernel."""
+    rel0, n_cls, nl = _rel_layout(ops, beta_mode)
+    if nl > MAX_REL_LIMBS:
+        raise ValueError(f"gemm_bits_mxu_cuda: {nl} accumulator limbs "
+                         f"exceed {MAX_REL_LIMBS}")
+    sa, sb, m, n = ops.sa, ops.sb, ops.m, ops.n
+    _, m_pad, k_pad = ops.ad.shape
+    n_pad = ops.bd.shape[1]
+    dev = out.device
+    rows = min(m_pad, max(ROW_TILE, CLS_BYTES // (8 * n_cls * n_pad)
+                          // ROW_TILE * ROW_TILE))
+    cls = torch.empty((n_cls, rows, n_pad), dtype=torch.int64, device=dev)
+    gemm_bits_mxu_cuda.class_buffers += 1
+    lib = _build.library()
+    stream = stream_of(dev)
+    for r0 in range(0, m, rows):
+        rr = min(rows, m_pad - r0)
+        err = lib.mxu_classes_cuda(
+            ops.ad.data_ptr() + r0 * k_pad, ptr(ops.bd), sa, sb,
+            m_pad * k_pad, n_pad * k_pad, rr, n_pad, k_pad,
+            _spill_run(sa, sb), ptr(cls), stream)
+        _build.check(err, "mxu_classes_cuda")
+        err = lib.mxu_round_cuda(
+            ptr(cls), n_cls, rr, n_pad, ops.ea.data_ptr() + 4 * r0,
+            ptr(ops.fb), c_bits.data_ptr() + 8 * r0 * n if mode else None,
+            beta, mode, min(rr, m - r0), n, nl, rel0,
+            out.data_ptr() + 8 * r0 * n, stream)
+        _build.check(err, "mxu_round_cuda")
+        gemm_bits_mxu_cuda.round_launches += 1
+
+
 def gemm_bits_mxu_cuda(z_bits, b_bits, c_bits, beta_bits: int,
                        beta_mode: str, sa: int, sb: int, ea=None,
                        fb=None) -> torch.Tensor:
     """Exact ExGEMM of covered CUDA bit tensors z (m, k), b (k, n), c (m, n)
-    at rung (sa, sb) -> (m, n) int64 bits: the digit kernel, the class
-    kernel and the rounding kernel.  No specials: the dispatcher overrides
-    those elements.  ``ea``/``fb``: the dispatcher's anchors, if any."""
+    at rung (sa, sb) -> (m, n) int64 bits: the digit kernel, then at rung
+    (8, 8) the class kernel that rounds in its epilogue, at the others the
+    class kernel and the rounding kernel.  No specials: the dispatcher
+    overrides those elements.  ``ea``/``fb``: the dispatcher's anchors, if
+    any.  Besides ``launches``, the wrapper counts the int64 class-sum
+    buffers it allocates (``class_buffers``) and the rounding kernel's
+    launches (``round_launches``): rung (8, 8) needs neither."""
     m, k = z_bits.shape
     n = b_bits.shape[1]
     check_cuda_bits(z_bits, "gemm_bits_mxu_cuda", (m, k))
@@ -249,54 +391,43 @@ def gemm_bits_mxu_cuda(z_bits, b_bits, c_bits, beta_bits: int,
     if mode:
         check_cuda_bits(c_bits, "gemm_bits_mxu_cuda", (m, n))
     ops = mxu_operands_cuda(z_bits, b_bits, sa, sb, ea, fb)
-    rel0, n_cls, nl = _rel_layout(ops, beta_mode)
-    if nl > MAX_REL_LIMBS:
-        raise ValueError(f"gemm_bits_mxu_cuda: {nl} accumulator limbs "
-                         f"exceed {MAX_REL_LIMBS}")
-    _, m_pad, k_pad = ops.ad.shape
-    n_pad = ops.bd.shape[1]
-    dev = z_bits.device
-    out = torch.empty((m, n), dtype=torch.int64, device=dev)
+    out = torch.empty((m, n), dtype=torch.int64, device=z_bits.device)
     if m * n == 0:
         return out
-    rows = min(m_pad, max(ROW_TILE, CLS_BYTES // (8 * n_cls * n_pad)
-                          // ROW_TILE * ROW_TILE))
-    cls = torch.empty((n_cls, rows, n_pad), dtype=torch.int64, device=dev)
-    lib = _build.library()
-    stream = stream_of(dev)
-    with torch.cuda.device(dev):
-        for r0 in range(0, m, rows):
-            rr = min(rows, m_pad - r0)
-            err = lib.mxu_classes_cuda(
-                ops.ad.data_ptr() + r0 * k_pad, ptr(ops.bd), sa, sb,
-                m_pad * k_pad, n_pad * k_pad, rr, n_pad, k_pad,
-                _spill_run(sa, sb), ptr(cls), stream)
-            _build.check(err, "mxu_classes_cuda")
-            err = lib.mxu_round_cuda(
-                ptr(cls), n_cls, rr, n_pad, ops.ea.data_ptr() + 4 * r0,
-                ptr(ops.fb), c_bits.data_ptr() + 8 * r0 * n if mode else None,
-                beta, mode, min(rr, m - r0), n, nl, rel0,
-                out.data_ptr() + 8 * r0 * n, stream)
-            _build.check(err, "mxu_round_cuda")
+    with torch.cuda.device(z_bits.device):
+        if (sa, sb) == (8, 8):
+            _gemm88_cuda(ops, c_bits, mode, beta, out)
+        else:
+            _gemm_classes_cuda(ops, c_bits, mode, beta, beta_mode, out)
     gemm_bits_mxu_cuda.launches += 1
     return out
 
 
 gemm_bits_mxu_cuda.launches = 0
+gemm_bits_mxu_cuda.class_buffers = 0
+gemm_bits_mxu_cuda.round_launches = 0
 
 
 def class_sums_torch(ops: MxuOperands) -> torch.Tensor:
     """int64 (n_cls, m, n): M_c = sum_{s+t=c} A_s @ B_t, by float64
-    matrix products of the digit planes (exact, see the module doc)."""
+    matrix products of the digit planes (exact, see the module doc), one
+    chunk of K_CHUNK k elements at a time, as the rung (8, 8) kernel
+    takes them."""
     m, n, k, sa, sb = ops.m, ops.n, ops.k, ops.sa, ops.sb
-    ad = ops.ad[:, :m, :k].to(torch.float64)
-    bstack = ops.bd[:, :n, :k].to(torch.float64).reshape((sb + 1) * n, k)
-    cls = torch.zeros((sa + sb + 1, m, n), dtype=torch.float64,
-                      device=ad.device)
-    for s in range(sa + 1):
-        p = (ad[s] @ bstack.t()).reshape(m, sb + 1, n).permute(1, 0, 2)
-        cls[s:s + sb + 1] += p
-    return cls.to(torch.int64)
+    cls = torch.zeros((sa + sb + 1, m, n), dtype=torch.int64,
+                      device=ops.ad.device)
+    for k0 in range(0, k, K_CHUNK):
+        k1 = min(k, k0 + K_CHUNK)
+        ad = ops.ad[:, :m, k0:k1].to(torch.float64)
+        bstack = ops.bd[:, :n, k0:k1].to(torch.float64).reshape(
+            (sb + 1) * n, k1 - k0)
+        part = torch.zeros((sa + sb + 1, m, n), dtype=torch.float64,
+                           device=ad.device)
+        for s in range(sa + 1):
+            p = (ad[s] @ bstack.t()).reshape(m, sb + 1, n).permute(1, 0, 2)
+            part[s:s + sb + 1] += p
+        cls += part.to(torch.int64)
+    return cls
 
 
 def gemm_bits_mxu_torch(z_bits, b_bits, c_bits, beta_bits: int,

@@ -29,9 +29,11 @@ Counterparts of ``exblas_tpu/ops/kernels/gemv_mxu.py``:
   accumulator with the exact ``beta * y_i`` and rounded there
   (``_apply_beta_rows``, ``round_rows``): beta*y needs no coverage.
 
-The TPU kernel's excess-128 XOR trick, sign-mask matmul, f32 byte-lane
-fold and int32 limb spills served its int32-only vector unit and are gone;
-the digit recode, the class sums and the rounding are what is left.
+The TPU kernel's sign-mask matmul, f32 byte-lane fold and int32 limb
+spills served its int32-only vector unit and are gone; its excess-128
+recode stays, as the kernels' way to the balanced digits
+(``gemm_mxu.excess_digits`` is its plain model).  The digit recode, the
+class sums and the rounding are what is left.
 ``gemv_bits_mxu_torch`` is the plain version: :func:`make_digits`, the
 digit-pair sums by float64 matrix products (exact: every partial sum is an
 integer below 2^53), the same combination and rounding.  The data must be
@@ -62,9 +64,10 @@ __all__ = ["analyze_gemv_rows_cuda", "analyze_gemv_rows_torch", "analyze_z",
 SPILL_K = 32768
 MAX_K_MXU = 1024 * SPILL_K
 KS = 64             # k step of the class kernel (two mma k-steps of 32)
-# k elements between widenings of the int32 digit-pair sums: a multiple of
-# KS, at most 2^16 (|A_s Z_t| <= 2^14).  No bit depends on it; the tests
-# shrink it to show that.
+# k elements between widenings of the int32 digit-pair sums (a warp's own
+# k at rung (2, 2), a block's at the others): a multiple of KS, at most
+# 2^16 (|A_s Z_t| <= 2^14).  No bit depends on it; the tests shrink it to
+# show that.
 K_CHUNK = 1 << 16
 MAX_REL_LIMBS = 48  # kMaxRel in csrc/gemv_mxu.cu
 E_SENT = -10000     # row anchor of a row without a non-special element
@@ -237,9 +240,10 @@ def gemv_bits_mxu_cuda(a_bits, z_bits, ea, f, y_bits, beta_bits: int,
     """Exact y = A @ z (+ beta * y) of covered CUDA bit tensors a (m, k),
     z (k,), y (m,) at rung (nwa, nwz) -> (m,) int64 bits: the z digits
     (``csrc/gemm_mxu.cu``'s digit kernel), the class kernel (int8
-    ``mma.sync``; A's digits are made in registers and never reach device
-    memory) and the rounding kernel.  ``ea`` (m,) and ``f`` (0-dim) are
-    the dispatcher's anchors, on the same device."""
+    ``mma.sync``; A's digits never reach device memory: at rung (2, 2) they
+    are made in registers straight into the mma fragments, at the others
+    staged in shared memory) and the rounding kernel.  ``ea`` (m,) and
+    ``f`` (0-dim) are the dispatcher's anchors, on the same device."""
     m, k = a_bits.shape
     check_cuda_bits(a_bits, "gemv_bits_mxu_cuda", (m, k))
     check_cuda_bits(z_bits, "gemv_bits_mxu_cuda", (k,))
