@@ -48,7 +48,14 @@ slice of the port:
   (rung (2, 2): B8 and B9 alone) against B7, exact host values and a
   permutation of k, on a 600-binade A (B7), on data with specials (the
   override), with beta general and with trans "T", and checks that this
-  path launched all three kernels;
+  path launched all three kernels; holds B7 and B4, on their warp-owned
+  accumulators, against their plain versions on the cases those add: B7
+  over its geometries (k split over blocks for small m, m = 1 at k =
+  2^22), rows read in place with lda > k (rows 8 bytes off 16), negate_z,
+  rows that cancel to +0, NaN/Inf rows and products at the format's two
+  ends; B4 at n in {1, 17, 2^20+3, 2^24} on wide300, specials and
+  cancellation, at every start alignment of the two vectors; and prints
+  both kernels' registers, spills (a spill fails) and shared memory;
 * ExTRSV: holds the exact solve B10 (one persistent launch a solve), at
   block heights 64 and 128, bit for bit against its plain version at n
   from 1 to 1000 on eight distributions (specials, a zero diagonal, NaN
@@ -2008,6 +2015,174 @@ def phase_gemv_timing(xt, smi: str, bench) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# B7 and B4 on their warp-owned accumulators: geometries, alignments, edges
+# ---------------------------------------------------------------------------
+
+ROW_DOT_KERNELS = (("exdot_attrs", (0,), "B4 dot kernel, 16-byte loads"),
+                   ("exdot_attrs", (1,), "B4 dot kernel, 8-byte loads"),
+                   ("gemv_rows_attrs", (), "B7 row kernel, 8 warps"))
+# (m, k) of the row kernel's geometry sweep: k split for small m (m = 1
+# up to 2^22), whole rows from 132 * 8 = 1056 rows on; k around the 1024 k
+# of a staged chunk of z
+B7_SHAPES = ((1, 1), (1, 1 << 22), (3, 1000), (7, 1023), (8, 1024),
+             (9, 1025), (1055, 4097), (1056, 3000), (1057, 700))
+B4_SIZES = (1, 17, (1 << 20) + 3, N_BIG)
+# the starts of a and b, in elements past a 16-byte boundary: both aligned
+# (16-byte loads), both 8 bytes off (one element apart, then 16-byte
+# loads), and one of each (8-byte loads)
+B4_OFFSETS = ((0, 0), (1, 1), (1, 0), (0, 1))
+
+
+def rowdot_resources() -> None:
+    """Registers, local (spilled) bytes, shared memory and resident blocks
+    an SM of B4 and B7, as the runtime reports them; a spill fails."""
+    from exblas_tpu_torch.ops.kernels import _build
+
+    lib = _build.library()
+    out = torch.zeros(4, dtype=torch.int32)
+    for entry, args, name in ROW_DOT_KERNELS:
+        _build.check(getattr(lib, entry)(*args, _build.ptr(out)), entry)
+        regs, local, shared, blocks = out.tolist()
+        log(f"{name}: {regs} registers, {local} local bytes, {shared} static "
+            f"shared bytes, {blocks} resident blocks an SM")
+        if local != 0:
+            raise AssertionError(f"{name} spills {local} bytes")
+
+
+def b7_cases():
+    """(name, a (m, k) bits on the card -- some read in place with lda >
+    k --, z bits, negate_z) for B7."""
+    for i, (m, k) in enumerate(B7_SHAPES):
+        seed = SEED + 3000 + 17 * i
+        span = (-300, 300) if i % 2 else (-30, 30)  # miss-heavy / window
+        yield (f"{m}x{k} range {span[1] - span[0]}",
+               cuda_bits(rand_mat(m, k, *span, seed)),
+               cuda_bits(rand_mat(1, k, -20, 20, seed + 1)[0]), False)
+    # blocks of rows and columns read in place: lda 1501 (rows alternate
+    # between 16-byte aligned and 8 bytes off) and 1500 (all 8 bytes off)
+    for lda, r0, c0 in ((1501, 5, 7), (1500, 3, 1)):
+        big = cuda_bits(rand_mat(300, lda, -200, 200, SEED + lda))
+        yield (f"200x1000 in place, lda {lda}, at ({r0}, {c0})",
+               big[r0:r0 + 200, c0:c0 + 1000],
+               cuda_bits(rand_mat(1, 1000, -50, 50, SEED + 7)[0]), False)
+    a = rand_mat(257, 1000, -300, 300, SEED + 8)
+    z = rand_mat(1, 1000, -10, 10, SEED + 9)[0]
+    yield "257x1000 negate_z", cuda_bits(a), cuda_bits(z), True
+    # rows that cancel to +0: [v, -v] . [w, w]
+    v = rand_mat(64, 700, -300, 300, SEED + 10)
+    w = rand_mat(1, 700, -20, 20, SEED + 11)[0]
+    yield ("64x1400 cancelling rows", cuda_bits(np.concatenate([v, -v], 1)),
+           cuda_bits(np.concatenate([w, w])), False)
+    # NaN (with a payload), +Inf, -Inf, Inf * 0 and both infinities in rows
+    a = rand_mat(40, 3000, -300, 300, SEED + 12)
+    z = rand_mat(1, 3000, -10, 10, SEED + 13)[0]
+    z[17] = 0.0
+    a[0, 5] = np.array([0xFFF0000000000123], np.uint64).view(np.float64)[0]
+    a[1, 6], a[2, 7] = np.inf, -np.inf
+    a[3, 17] = np.inf                   # Inf * 0: NaN
+    a[4, 8], a[4, 2999] = np.inf, -np.inf
+    a[5, :] = np.inf
+    yield "40x3000 specials", cuda_bits(a), cuda_bits(z), False
+    # products at the format's two ends: of two subnormals (base limb 0) and
+    # of two doubles near 2^1023 (the top limbs)
+    rs = np.random.RandomState(SEED + 14)
+    sub = rs.randint(1, 1 << 20, size=(33, 2000)) * 5e-324
+    yield ("33x2000 subnormal products", cuda_bits(sub),
+           cuda_bits(rs.randint(1, 1 << 20, size=2000) * 5e-324), False)
+    yield ("33x2000 top products", cuda_bits(rand_mat(33, 2000, 990, 1023,
+                                                      SEED + 15)),
+           cuda_bits(rand_mat(1, 2000, 990, 1023, SEED + 16)[0]), False)
+
+
+def b4_cases(xt, n: int):
+    """(name, a, b) numpy pairs of n elements for B4."""
+    seed = SEED + 4000 + n % 1009
+    a = make_input(xt, "wide", n, seed)
+    b = make_input(xt, "wide", n, seed + 1)
+    yield "wide300", a, b
+    sa, sb = a.copy(), b.copy()
+    rs = np.random.RandomState(seed + 2)
+    sa[rs.randint(0, n)] = np.inf
+    sb[rs.randint(0, n)] = -np.inf
+    if n > 2:
+        sa[n - 1] = np.array([0xFFF0000000000123], np.uint64).view(
+            np.float64)[0]
+    yield "wide300 with NaN and +-Inf", sa, sb
+    h = n // 2
+    v = make_input(xt, "wide", h, seed + 3)
+    w = make_input(xt, "wide", h, seed + 4)
+    yield ("cancellation", np.concatenate([v, -v, np.ones(n % 2)]),
+           np.concatenate([w, w, np.zeros(n % 2)]))
+
+
+def offset_copy(x: np.ndarray, off: int) -> torch.Tensor:
+    """x on the card starting ``off`` elements past a 16-byte boundary."""
+    buf = torch.empty(x.size + off, dtype=torch.float64, device="cuda")
+    out = buf[off:]
+    out.copy_(torch.from_numpy(x))
+    return out
+
+
+def phase_rowdot_kernels(xt) -> dict:
+    """B7 and B4 bit for bit against their plain versions on the cases
+    their warp-owned accumulators add: B7 over its geometries (k split
+    for small m), rows read in place, negate_z, cancellation, specials
+    and the format's two ends; B4 at every start alignment."""
+    from exblas_tpu_torch.ops.exgemv import round_rows
+    from exblas_tpu_torch.ops.kernels import dot_kernel as dk
+    from exblas_tpu_torch.ops.kernels import gemv_kernel as vk
+
+    rowdot_resources()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {"gemv_rows_acc_cuda": 0.0, "exdot_acc_cuda": 0.0,
+            "exdot_bits_cuda": 0.0}
+    failures = []
+    n_rows = 0
+    for name, ab, zb, neg in b7_cases():
+        n_rows += 1
+        m, k = ab.shape
+        geo = vk.row_geometry(m, k, sms)
+        got = vk.gemv_rows_acc_cuda(ab, zb, negate_z=neg)
+        want = vk.gemv_rows_acc_torch(ab, zb, negate_z=neg)
+        e = rows_err(got, want)
+        errs["gemv_rows_acc_cuda"] = max(errs["gemv_rows_acc_cuda"], e)
+        ok = e == 0
+        if "cancelling" in name:
+            ok = ok and not bool((round_rows(*got) != 0).any())
+        log(f"B7 {name} ({geo.warps} warps, {geo.splits} splits of "
+            f"{geo.span} k): {'==' if ok else '!='}")
+        if not ok:
+            failures.append(f"B7 {name}")
+    for n in B4_SIZES:
+        for name, a_np, b_np in b4_cases(xt, n):
+            a0, b0 = (torch.from_numpy(v).cuda() for v in (a_np, b_np))
+            acc_p = dk.exdot_acc_torch(a0, b0)
+            bits_p = int(dk.exdot_bits_torch(a0, b0))
+            line = [f"B4 n={n} {name}:"]
+            for oa, ob in B4_OFFSETS:
+                a, b = offset_copy(a_np, oa), offset_copy(b_np, ob)
+                bits_k = int(dk.exdot_bits_cuda(a, b))
+                e = same_acc(dk.exdot_acc_cuda(a, b), acc_p)
+                errs["exdot_bits_cuda"] = max(errs["exdot_bits_cuda"],
+                                              bits_err(bits_k, bits_p))
+                errs["exdot_acc_cuda"] = max(errs["exdot_acc_cuda"], e)
+                ok = bits_k == bits_p and e == 0
+                if name == "cancellation" and bits_k != 0:
+                    ok = False
+                line.append(f"at ({oa},{ob}) {'==' if ok else '!='}")
+                if not ok:
+                    failures.append(f"B4 n={n} {name} at ({oa},{ob})")
+            log(" ".join(line) + f" {u64(bits_p):#018x}")
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"B7/B4 != plain version: {failures}")
+    log(f"B7 and B4 vs plain versions: bit-equal (tolerance 0) on "
+        f"{n_rows} row cases and {len(B4_SIZES)} sizes x 3 data "
+        f"x {len(B4_OFFSETS)} alignments")
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # ExTRSV
 # ---------------------------------------------------------------------------
 
@@ -2386,7 +2561,8 @@ FAST_KERNELS = (
 
 
 PHASES = ("kernels", "fast_kernels", "public_api", "gemm_kernels",
-          "gemm_public", "gemv_kernels", "gemv_public", "trsv_kernels",
+          "gemm_public", "gemv_kernels", "gemv_public", "rowdot_kernels",
+          "trsv_kernels",
           "trsv_public", "timing", "fast_timing", "gemm_timing",
           "gemv_timing", "trsv_timing")
 
@@ -2414,6 +2590,7 @@ def run_only(xt, smi: str, names: list[str]) -> None:
         "gemm_public": lambda: phase_gemm_public(xt, bench("gemm")),
         "gemv_kernels": lambda: phase_gemv_kernels(xt),
         "gemv_public": lambda: phase_gemv_public(xt, bench("gemv")),
+        "rowdot_kernels": lambda: phase_rowdot_kernels(xt),
         "trsv_kernels": lambda: phase_trsv_kernels(xt),
         "trsv_public": lambda: phase_trsv_public(xt, bench("trsv")),
         "timing": lambda: phase_timing(xt, smi),
@@ -2457,6 +2634,8 @@ def main() -> None:
     gemv_launches, gemv_errs = phase_gemv_public(xt, gemv_bench)
     launches.update(gemv_launches)
     for name, e in gemv_errs.items():
+        errs[name] = max(errs[name], e)
+    for name, e in phase_rowdot_kernels(xt).items():
         errs[name] = max(errs[name], e)
     errs.update(phase_trsv_kernels(xt))
     trsv_bench = trsv_bench_data(xt, N_TRSV)

@@ -37,6 +37,7 @@ SIGNATURES = {
     "exsum_bits_cuda": (_P, _N, _P, _P, _P),
     "exdot_acc_cuda": (_P, _P, _N, _P, _P, _P, _P),
     "exdot_bits_cuda": (_P, _P, _N, _P, _P, _P),
+    "exdot_attrs": (_I, _P),
     "gemm_bits_cuda": (_P, _P, _P, _N, _I, _N, _N, _N, _P, _P),
     "mxu_classes_cuda": (_P, _P, _I, _I, _N, _N, _N, _N, _N, _N, _P, _P),
     "mxu_gemm88_cuda": (_P, _P, _N, _N, _N, _N, _N, _P, _P, _P, _N, _I, _N,
@@ -46,7 +47,8 @@ SIGNATURES = {
     "mxu_digits_cuda": (_P, _N, _N, _P, _I, _N, _N, _P, _P),
     "mxu_round_cuda": (_P, _I, _N, _N, _P, _P, _P, _N, _I, _N, _N, _I, _I,
                        _P, _P),
-    "gemv_rows_acc_cuda": (_P, _P, _N, _N, _N, _I, _P, _P, _P),
+    "gemv_rows_acc_cuda": (_P, _P, _N, _N, _N, _I, _I, _I, _N, _P, _P, _P),
+    "gemv_rows_attrs": (_P,),
     "gemv_analyze_cuda": (_P, _N, _N, _P, _P, _P, _P, _P),
     "gemv_mxu_classes_cuda": (_P, _P, _P, _N, _N, _N, _I, _I, _N, _P, _P),
     "gemv_mxu_round_cuda": (_P, _I, _P, _P, _P, _N, _I, _N, _I, _I, _P, _P),

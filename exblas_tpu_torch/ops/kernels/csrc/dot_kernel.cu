@@ -14,109 +14,235 @@
 //
 // Bound on the H100: 16 bytes read per element and a few dozen integer
 // operations, so HBM bandwidth (3.35 TB/s) is the natural bound: 2^24
-// elements are 256 MiB, about 80 us.  The design follows sum_kernel.cu:
-//   * one grid-stride pass with coalesced 8-byte loads of both vectors,
-//     four products in flight per thread;
-//   * the shifted product (up to 125 bits) is added whole into a
-//     per-thread signed 192-bit bin in registers when its base limb q falls
-//     in the warp's window of 4 limbs (deposit.cuh), and otherwise split
-//     into 7 exact 20-bit digits added to limbs q..q+6 of a per-block int64
-//     accumulator in shared memory by integer atomics; the bins reach the
-//     shared accumulator once, at the end.  A limb takes at most one digit
-//     below 2^20 per element and per flushed bin, so int64 limbs need no
-//     carry pass while n <= 2^42 (the wrapper checks);
+// elements are 256 MiB, about 80 us.  The design:
+//   * one persistent launch, its grid as many blocks as the occupancy
+//     calculator lets every SM hold;
+//   * every thread streams both vectors with 16-byte loads (8-byte loads
+//     where the two start at different offsets mod 16; an element apart
+//     where both start 8 bytes off 16), kUnits loads of each a step, the
+//     next step's loads issued before the current step is decoded;
+//   * each product is formed exactly (__umul64hi) and added to its warp's
+//     accumulator (warpacc.cuh): straight through into the warp's register
+//     window when it falls there, else, in a second pass only where a lane
+//     needs it, digit by digit into int32 shared limbs by native 32-bit
+//     atomics, spilled into the warp's int64 limbs every kSpillSteps steps;
 //   * specials follow exblas_tpu/core/deposit.py:181-234: NaN or 0*Inf gives
 //     NaN, Inf times a finite nonzero gives Inf with the xor of the signs,
 //     and a zero or special deposits nothing;
-//   * blocks merge by global integer atomics; a one-block finishing kernel
-//     exports or rounds (round.cuh).
+//   * a block adds its warps' limbs and counts and merges them into the
+//     global workspace by 64-bit global integer atomics (native); the last
+//     block to arrive (a ticket counter) exports or rounds the sum
+//     (round.cuh finish: one thread walks only the range of nonzero
+//     limbs), so a call is one launch after the workspace's zeroing.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "deposit.cuh"
 #include "round.cuh"
+#include "warpacc.cuh"
 
 namespace {
 
-using exblas::kDigits;
 using exblas::kDotLimbs;
 using exblas::kDotOffset;
 
-constexpr int kWs = kDotLimbs + 3;
-constexpr int kUnroll = 4;  // products loaded per thread per step
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerStep = 4;  // products a thread adds a step
+constexpr int kWs = kDotLimbs + 3;  // limbs, NaN, +Inf, -Inf; then the ticket
 
-__global__ void __launch_bounds__(exblas::kBlock)
-    dot_deposit_kernel(const long long* __restrict__ a,
-                       const long long* __restrict__ b, long long n,
-                       unsigned long long* __restrict__ ws) {
-  __shared__ unsigned long long s_acc[kWs];
-  for (int j = threadIdx.x; j < kWs; j += blockDim.x) s_acc[j] = 0ULL;
-  __syncthreads();
+using Acc = exblas::WarpAcc<kPerStep>;
 
-  exblas::BinWindow<kDigits> window;
-  long long nan_c = 0, pinf_c = 0, ninf_c = 0;
-  const long long step = static_cast<long long>(blockDim.x) * kUnroll;
-  // Block-uniform loop bound; lanes past n decode 0 * 0.
-  for (long long base = blockIdx.x * step; base < n;
-       base += gridDim.x * step) {
-    long long va[kUnroll], vb[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long i = base + u * blockDim.x + threadIdx.x;
-      va[u] = i < n ? a[i] : 0LL;
-      vb[u] = i < n ? b[i] : 0LL;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      int q;
-      unsigned long long lo, hi;
-      bool negative;
-      const bool valid =
-          exblas::decode_product(va[u], vb[u], kDotOffset, q, lo, hi,
-                                 negative, nan_c, pinf_c, ninf_c);
-      window.add(valid, q, lo, hi, negative, s_acc);
+// W elements of each vector a load: 2 (16-byte loads) or 1; av(j), bv(j)
+// are the j-th elements of a and b.
+template <int W>
+struct Unit;
+
+template <>
+struct Unit<2> {
+  longlong2 a, b;
+  __device__ __forceinline__ void load(const long long* pa,
+                                       const long long* pb, long long i,
+                                       long long nu) {
+    if (i < nu) {
+      a = __ldcs(reinterpret_cast<const longlong2*>(pa) + i);
+      b = __ldcs(reinterpret_cast<const longlong2*>(pb) + i);
+    } else {
+      a.x = a.y = b.x = b.y = 0LL;
     }
   }
-  window.flush(s_acc);
-  exblas::deposit_specials(s_acc, kDotLimbs, nan_c, pinf_c, ninf_c);
-  __syncthreads();
-  for (int j = threadIdx.x; j < kWs; j += blockDim.x) {
-    if (s_acc[j] != 0ULL) atomicAdd(&ws[j], s_acc[j]);
+  __device__ __forceinline__ long long av(int j) const { return j ? a.y : a.x; }
+  __device__ __forceinline__ long long bv(int j) const { return j ? b.y : b.x; }
+};
+
+template <>
+struct Unit<1> {
+  long long a, b;
+  __device__ __forceinline__ void load(const long long* pa,
+                                       const long long* pb, long long i,
+                                       long long nu) {
+    a = i < nu ? __ldcs(pa + i) : 0LL;
+    b = i < nu ? __ldcs(pb + i) : 0LL;
   }
+  __device__ __forceinline__ long long av(int) const { return a; }
+  __device__ __forceinline__ long long bv(int) const { return b; }
+};
+
+// a, b: n elements; the first `head` (0 or 1) of them apart, then nu
+// units of W elements from a + head, b + head (16-byte aligned when W ==
+// 2), then the elements past head + nu * W (at most one) apart.
+template <int W>
+__global__ void __launch_bounds__(kThreads, 2)
+    dot_warp_kernel(const long long* __restrict__ a,
+                    const long long* __restrict__ b, long long n, int head,
+                    long long* __restrict__ ws, int* limbs_out,
+                    int* special_out, unsigned long long* bits_out) {
+  constexpr int kUnits = kPerStep / W;  // loads of each vector a step
+  __shared__ int s32[kWarps][exblas::kWarpLimbs];
+  __shared__ long long s64[kWarps][exblas::kWarpLimbs];
+  __shared__ long long s_cnt[kWarps][3];
+  __shared__ bool s_last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long nu = (n - head) / W;
+  const long long tail = head + nu * W;  // the element left over, if < n
+  const long long threads = static_cast<long long>(gridDim.x) * kThreads;
+  const long long tid = static_cast<long long>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  const long long per_step = kUnits * threads;
+  const long long steps = (nu + per_step - 1) / per_step;  // grid-uniform
+  const long long* pa = a + head;
+  const long long* pb = b + head;
+
+  Acc acc;
+  acc.init(s32[warp], s64[warp]);
+  if (blockIdx.x == 0 && warp == 0) {  // the head and the tail element
+    const long long i = lane == 0 && head ? 0 : (lane == 1 ? tail : n);
+    acc.add_one(i < n ? a[i] : 0LL, i < n ? b[i] : 0LL);
+    acc.spill();
+  }
+  Unit<W> cur[kUnits];
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) cur[u].load(pa, pb, u * threads + tid, nu);
+#pragma unroll 1
+  for (long long s = 0; s < steps; ++s) {
+    Unit<W> nxt[kUnits];
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      nxt[u].load(pa, pb, (s + 1) * per_step + u * threads + tid, nu);
+    }
+    if (acc.unplaced()) {
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+#pragma unroll
+        for (int j = 0; j < W; ++j) acc.place(cur[u].av(j), cur[u].bv(j));
+      }
+    }
+    unsigned rare = 0u;
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        rare |= static_cast<unsigned>(acc.add_hit(cur[u].av(j), cur[u].bv(j)))
+                << (u * W + j);
+      }
+    }
+    if (__any_sync(exblas::kFullMask, rare != 0u)) {
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          acc.add_rare(cur[u].av(j), cur[u].bv(j), (rare >> (u * W + j)) & 1u);
+        }
+      }
+    }
+    if ((s + 1) % Acc::kSpillSteps == 0) acc.spill();
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) cur[u] = nxt[u];
+  }
+  acc.flush();
+  long long nan_t, pinf_t, ninf_t;
+  acc.special_totals(nan_t, pinf_t, ninf_t);
+  if (lane < 3) {
+    s_cnt[warp][lane] = lane == 0 ? nan_t : (lane == 1 ? pinf_t : ninf_t);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < kWs; j += kThreads) {
+    long long v = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      v += j < kDotLimbs ? s64[w][j] : s_cnt[w][j - kDotLimbs];
+    }
+    if (v != 0LL) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(ws + j),
+                static_cast<unsigned long long>(v));
+    }
+  }
+  __threadfence();  // this block's sums are in ws before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(reinterpret_cast<unsigned*>(ws + kWs), 1u) ==
+             gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  long long* sum = s64[0];
+  for (int j = threadIdx.x; j < kWs; j += kThreads) sum[j] = __ldcg(ws + j);
+  __syncthreads();
+  exblas::finish<kDotLimbs>(sum, kDotOffset, limbs_out, special_out,
+                            bits_out);
 }
 
-__global__ void dot_finish_kernel(const long long* __restrict__ ws,
-                                  int* limbs_out, int* special_out,
-                                  unsigned long long* bits_out) {
-  exblas::finish<kDotLimbs>(ws, kDotOffset, limbs_out, special_out, bits_out);
+template <int W>
+int launch_w(const long long* a, const long long* b, long long n, int head,
+             long long* ws, int* limbs_out, int* special_out,
+             unsigned long long* bits_out, cudaStream_t s) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dot_warp_kernel<W>, kThreads, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long units = (n - head) / W;
+  const long long want = (units + kThreads * (kPerStep / W) - 1) /
+                         (kThreads * (kPerStep / W));
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int grid = static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+  dot_warp_kernel<W><<<grid, kThreads, 0, s>>>(a, b, n, head, ws, limbs_out,
+                                                special_out, bits_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* a, const void* b, long long n, void* ws,
            void* limbs_out, void* special_out, void* bits_out,
            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int grid = 0;
-  cudaError_t err = exblas::deposit_grid(n, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dot_deposit_kernel<<<grid, exblas::kBlock, 0, s>>>(
-      static_cast<const long long*>(a), static_cast<const long long*>(b), n,
-      static_cast<unsigned long long*>(ws));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dot_finish_kernel<<<1, 128, 0, s>>>(
-      static_cast<const long long*>(ws), static_cast<int*>(limbs_out),
-      static_cast<int*>(special_out),
-      static_cast<unsigned long long*>(bits_out));
-  return static_cast<int>(cudaGetLastError());
+  const auto pa = static_cast<const long long*>(a);
+  const auto pb = static_cast<const long long*>(b);
+  const uintptr_t ra = reinterpret_cast<uintptr_t>(a) & 15;
+  const uintptr_t rb = reinterpret_cast<uintptr_t>(b) & 15;
+  auto w = static_cast<long long*>(ws);
+  auto lo = static_cast<int*>(limbs_out);
+  auto so = static_cast<int*>(special_out);
+  auto bo = static_cast<unsigned long long*>(bits_out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (ra == rb) {
+    return launch_w<2>(pa, pb, n, ra != 0 && n > 0 ? 1 : 0, w, lo, so, bo, s);
+  }
+  return launch_w<1>(pa, pb, n, 0, w, lo, so, bo, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// a, b: n float64 values each (read as int64 bits).  ws: 219 int64, zeroed
-// by the caller.  Writes 216 canonical int32 limbs and 3 int32 counts.
+// a, b: n float64 values each (read as int64 bits, 8-byte aligned).  ws:
+// 220 int64 (219 sums and the ticket), zeroed by the caller.  Writes 216
+// canonical int32 limbs and 3 int32 counts.
 int exdot_acc_cuda(const void* a, const void* b, long long n, void* ws,
                    void* limbs_out, void* special_out, void* stream) {
   return launch(a, b, n, ws, limbs_out, special_out, nullptr, stream);
@@ -126,6 +252,24 @@ int exdot_acc_cuda(const void* a, const void* b, long long n, void* ws,
 int exdot_bits_cuda(const void* a, const void* b, long long n, void* ws,
                     void* bits_out, void* stream) {
   return launch(a, b, n, ws, nullptr, nullptr, bits_out, stream);
+}
+
+// out[0..3] = registers a thread, local (spilled) bytes, static shared
+// bytes and resident blocks an SM of the deposit kernel: which 0 with
+// 16-byte loads, 1 with 8-byte loads.
+int exdot_attrs(int which, void* out) {
+  const void* fn = which == 0
+                       ? reinterpret_cast<const void*>(dot_warp_kernel<2>)
+                       : reinterpret_cast<const void*>(dot_warp_kernel<1>);
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* o = static_cast<int*>(out);
+  o[0] = at.numRegs;
+  o[1] = static_cast<int>(at.localSizeBytes);
+  o[2] = static_cast<int>(at.sharedSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[3], fn, kThreads, 0));
 }
 
 }  // extern "C"

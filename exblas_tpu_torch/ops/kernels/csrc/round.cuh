@@ -5,7 +5,8 @@
 // in-kernel rounding inside exsum_bits_pallas and exdot_bits_pallas).  The
 // TPU version rounds 128 lane accumulators at once in uint32 word pairs and
 // finds the leading limb without gathers; on Hopper one thread walks the
-// merged int64 limbs held in shared memory, with native 64-bit integers.
+// range of nonzero merged int64 limbs held in shared memory, with native
+// 64-bit integers (finish, round_limbs).
 //
 // Steps (all in integers: a native fp64 add cannot round a ~2100-bit value
 // once):
@@ -31,20 +32,6 @@ constexpr unsigned long long kQNanBits = 0x7FF8000000000000ULL;
 constexpr unsigned long long kPInfBits = 0x7FF0000000000000ULL;
 constexpr unsigned long long kNInfBits = 0xFFF0000000000000ULL;
 constexpr unsigned long long kSignBit = 0x8000000000000000ULL;
-
-// Sequential carry over L int64 limbs.  Writes digits in [0, 2^20) and
-// returns the final carry (< 0 iff the value is negative).
-__device__ __forceinline__ long long canonicalize(const long long* limbs,
-                                                  int* digits, int L) {
-  long long carry = 0;
-  for (int j = 0; j < L; ++j) {
-    const long long d = limbs[j] + carry;
-    const long long digit = d & kLimbMask;
-    digits[j] = static_cast<int>(digit);
-    carry = (d - digit) >> kLimbBits;  // arithmetic shift: floor division
-  }
-  return carry;
-}
 
 // Round m55 * 2^(e_msb - 54) (bit 54 of m55 set) plus a sticky tail below
 // to binary64, round to nearest even.  Port of core/rounding.py's
@@ -75,42 +62,6 @@ __device__ __forceinline__ unsigned long long encode_round(
   unsigned long long bits = (expf << 52) | (m & ((1ULL << 52) - 1ULL));
   if (!subn && e + 1023 >= 2047) bits = kPInfBits;
   return negative ? (bits | kSignBit) : bits;
-}
-
-// Round canonical digits (modified in place: negated if negative) to
-// binary64 bits.  Bit p of the accumulator has exponent p - offset_bits.
-__device__ __forceinline__ unsigned long long round_digits(
-    int* digits, int L, bool negative, int offset_bits) {
-  if (negative) {
-    long long borrow = 1;
-    for (int j = 0; j < L; ++j) {
-      const long long t = (digits[j] ^ kLimbMask) + borrow;
-      digits[j] = static_cast<int>(t & kLimbMask);
-      borrow = t >> kLimbBits;
-    }
-  }
-  int jstar = L - 1;
-  while (jstar >= 0 && digits[jstar] == 0) --jstar;
-  if (jstar < 0) return 0ULL;  // exact zero is +0.0
-  const int p_msb = jstar * kLimbBits + (31 - __clz(digits[jstar]));
-  const int pos_low = p_msb - 54;
-  // floor(pos_low / 20); pos_low >= -54
-  const int j0 = (pos_low + 60) / kLimbBits - 3;
-  unsigned long long m55 = 0ULL;
-  bool sticky = false;
-  for (int j = 0; j < j0; ++j) sticky = sticky || digits[j] != 0;
-  for (int j = j0 < 0 ? 0 : j0; j <= jstar; ++j) {
-    const unsigned long long d = static_cast<unsigned int>(digits[j]);
-    const int s = kLimbBits * j - pos_low;  // this digit's lsb in the window
-    if (s >= 0) {
-      m55 |= d << s;
-    } else {
-      m55 |= d >> (-s);
-      sticky = sticky || (d & ((1ULL << (-s)) - 1ULL)) != 0ULL;
-    }
-  }
-  return encode_round(negative, p_msb - offset_bits,
-                      m55 & ((1ULL << 55) - 1ULL), sticky);
 }
 
 // Round the exact value sum_j limbs[j] * 2^(20 j) of a thread's own limbs
@@ -209,34 +160,67 @@ __device__ __forceinline__ unsigned long long apply_specials(
   return bits;
 }
 
-// The finishing step shared by the sum and dot kernels, run by one block.
-// ws holds L int64 limbs followed by the NaN, +Inf and -Inf counts.  With
-// bits_out set it writes the rounded binary64 bits; otherwise it writes the
-// canonical int32 limbs (digits in [0, 2^20) with the final carry folded
-// into the top limb, which keeps the exact value) and the int32 counts.
+// The finishing step shared by the sum and dot kernels, run by every thread
+// of one block: sum holds L int64 limbs (|limb| < 2^63) and then the NaN,
+// +Inf and -Inf counts, in shared memory, and is modified.  With bits_out
+// set it writes the correctly rounded binary64 bits; otherwise the
+// canonical int32 limbs (digits in [0, 2^20), the final carry folded into
+// the top limb) and the int32 counts.  One thread carries only the range of
+// nonzero limbs: below the lowest the digits are 0, and a carry out of the
+// highest, jhi, is below 2^43, 2^23 and 2^3 at limbs jhi + 1, + 2 and + 3,
+// and 0 or -1 from there on, so the digits above jhi + 3 are 0 or all
+// ones -- the digits of one sequential carry over all L limbs.
 template <int L>
-__device__ __forceinline__ void finish(const long long* ws, int offset_bits,
+__device__ __forceinline__ void finish(long long* sum, int offset_bits,
                                        int* limbs_out, int* special_out,
                                        unsigned long long* bits_out) {
-  __shared__ long long s_limbs[L];
-  __shared__ int s_digits[L];
-  for (int j = threadIdx.x; j < L; j += blockDim.x) s_limbs[j] = ws[j];
+  __shared__ int s_lo, s_hi;
+  __shared__ long long s_carry;
+  if (threadIdx.x == 0) {
+    s_lo = L;
+    s_hi = -1;
+  }
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  const long long carry = canonicalize(s_limbs, s_digits, L);
-  const long long nan_c = ws[L], pinf_c = ws[L + 1], ninf_c = ws[L + 2];
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    if (sum[j] != 0LL) {
+      atomicMin(&s_lo, j);
+      atomicMax(&s_hi, j);
+    }
+  }
+  __syncthreads();
+  const int jlo = s_lo, jhi = s_hi;
+  const int jtop = jhi + 3 < L - 1 ? jhi + 3 : L - 1;
   if (bits_out != nullptr) {
-    const unsigned long long bits =
-        round_digits(s_digits, L, carry < 0, offset_bits);
-    *bits_out = apply_specials(bits, nan_c, pinf_c, ninf_c);
+    if (threadIdx.x == 0) {
+      // round_limbs canonicalizes up to one limb above the range it is given
+      const unsigned long long bits =
+          round_limbs(sum, jlo, jtop - 1 > jhi ? jtop - 1 : jhi, L,
+                      offset_bits);
+      *bits_out = apply_specials(bits, sum[L], sum[L + 1], sum[L + 2]);
+    }
     return;
   }
-  for (int j = 0; j < L - 1; ++j) limbs_out[j] = s_digits[j];
-  limbs_out[L - 1] =
-      static_cast<int>(s_digits[L - 1] + carry * (1LL << kLimbBits));
-  special_out[0] = static_cast<int>(nan_c);
-  special_out[1] = static_cast<int>(pinf_c);
-  special_out[2] = static_cast<int>(ninf_c);
+  if (threadIdx.x == 0) {
+    long long carry = 0;
+    for (int j = jlo; j <= jtop; ++j) {
+      const long long d = sum[j] + carry;
+      const long long digit = d & kLimbMask;
+      sum[j] = digit;
+      carry = (d - digit) >> kLimbBits;
+    }
+    s_carry = carry;
+  }
+  __syncthreads();
+  const long long carry = s_carry;
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    long long d = 0LL;  // below jlo
+    if (j >= jlo) d = j <= jtop ? sum[j] : (carry < 0 ? kLimbMask : 0LL);
+    if (j == L - 1) d += carry * (1LL << kLimbBits);
+    limbs_out[j] = static_cast<int>(d);
+  }
+  if (threadIdx.x < 3) {
+    special_out[threadIdx.x] = static_cast<int>(sum[L + threadIdx.x]);
+  }
 }
 
 }  // namespace exblas

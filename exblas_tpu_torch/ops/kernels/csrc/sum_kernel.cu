@@ -120,7 +120,11 @@ __global__ void __launch_bounds__(exblas::kBlock)
 __global__ void sum_finish_kernel(const long long* __restrict__ ws,
                                   int* limbs_out, int* special_out,
                                   unsigned long long* bits_out) {
-  exblas::finish<kSumLimbs>(ws, kSumOffset, limbs_out, special_out, bits_out);
+  __shared__ long long sum[kWs];
+  for (int j = threadIdx.x; j < kWs; j += blockDim.x) sum[j] = ws[j];
+  __syncthreads();
+  exblas::finish<kSumLimbs>(sum, kSumOffset, limbs_out, special_out,
+                            bits_out);
 }
 
 int launch(const void* x, long long n, void* ws, void* limbs_out,

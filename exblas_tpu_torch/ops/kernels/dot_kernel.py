@@ -23,6 +23,10 @@ from ...core.types import DOT_FORMAT, L_DOT, N_SPECIAL, Superacc
 from . import _build
 from ._build import check_cuda_f64, ptr, stream_of
 
+# The kernel's workspace: the limbs and counts its blocks add up, then the
+# ticket that finds the last block (csrc/dot_kernel.cu), zeroed a call.
+WS_WORDS = L_DOT + N_SPECIAL + 1
+
 
 def _check_pair(a: torch.Tensor, b: torch.Tensor, name: str) -> int:
     check_cuda_f64(a, name)
@@ -39,7 +43,7 @@ def exdot_acc_cuda(a: torch.Tensor, b: torch.Tensor) -> Superacc:
     n = _check_pair(a, b, "exdot_acc_cuda")
     lib = _build.library()
     dev = a.device
-    ws = torch.zeros(L_DOT + N_SPECIAL, dtype=torch.int64, device=dev)
+    ws = torch.zeros(WS_WORDS, dtype=torch.int64, device=dev)
     limbs = torch.empty(L_DOT, dtype=torch.int32, device=dev)
     special = torch.empty(N_SPECIAL, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -56,7 +60,7 @@ def exdot_bits_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = _check_pair(a, b, "exdot_bits_cuda")
     lib = _build.library()
     dev = a.device
-    ws = torch.zeros(L_DOT + N_SPECIAL, dtype=torch.int64, device=dev)
+    ws = torch.zeros(WS_WORDS, dtype=torch.int64, device=dev)
     bits = torch.empty((), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = lib.exdot_bits_cuda(ptr(a), ptr(b), n, ptr(ws), ptr(bits),

@@ -9,11 +9,13 @@ at the wider rungs); the rung choice against a recomputation from JAX's
 own analysis; the error cases, the ``fpe == 1`` control, the device rules
 and the Fraction oracle.  Tolerance is zero.  JAX's Pallas GEMV kernels
 compile slowly in interpret mode, so they run at two narrow rungs and one
-small shape each, and the XLA references reuse a few compiled shapes.
+small shape each, the XLA references reuse a few compiled shapes, and
+JAX's row and z analyses are compiled once for the module (``jax_gemv``).
 The CUDA kernels are held against these plain versions on the card by
 ``chip_smoke.py``."""
 
 import importlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -84,6 +86,20 @@ def operands(m, n, seed, lo=0, hi=30):
     a = xb.init_fpuniform_matrix(m, n, hi - lo, 0, seed=seed) * np.exp2(lo)
     return a, xb.init_fpuniform(n, 25, 3, seed=seed + 1), vec(m, -5, 5,
                                                                seed + 2)
+
+
+@pytest.fixture(scope="module")
+def jax_gemv():
+    """The JAX package's GEMV analyses, each compiled once for the module's
+    shapes (called eagerly, they run op by op at every call): the XLA
+    ``analyze_gemv_rows`` and ``analyze_z``, and the Pallas pass
+    ``_analyze_rows_stats`` (traced in interpret mode at its first call)."""
+    import jax
+    from exblas_tpu.ops.kernels import gemv_mxu as jmxu
+
+    return SimpleNamespace(rows=jax.jit(jmxu.analyze_gemv_rows),
+                           z=jax.jit(jmxu.analyze_z),
+                           stats=jax.jit(jmxu._analyze_rows_stats))
 
 
 # --- the public entry against JAX --------------------------------------------
@@ -363,23 +379,21 @@ def _b8_data(kind):
 
 
 @pytest.mark.parametrize("kind", ["plain", "edges", "tiny_only"])
-def test_analyze_gemv_rows_matches_jax(kind):
+def test_analyze_gemv_rows_matches_jax(kind, jax_gemv):
     from jax.experimental.pallas import tpu as pltpu
-    from exblas_tpu.ops.kernels.gemv_mxu import (_analyze_rows_stats,
-                                                 analyze_gemv_rows)
 
     a = _b8_data(kind)
     A = split_f64(a)
     ea, spread, special = tmxu.analyze_gemv_rows_torch(_bits(a))
     assert ea.dtype == torch.int32 and spread.dtype == torch.int32
-    w_ea, w_spread, w_special = analyze_gemv_rows(A.hi, A.lo)  # XLA branch
+    w_ea, w_spread, w_special = jax_gemv.rows(A.hi, A.lo)  # XLA branch
     assert np.array_equal(ea.numpy(), np.asarray(w_ea))
     assert int(spread) == int(w_spread) and bool(special) == bool(w_special)
     # the Pallas pass: anchors, and the spread as analyze_gemv_rows forms
     # it from the stats (gemv_mxu.py:196-206)
     with pltpu.force_tpu_interpret_mode():
         e_max, lsb_min, row_special, row_hi_inv = map(
-            np.asarray, _analyze_rows_stats(A.hi))
+            np.asarray, jax_gemv.stats(A.hi))
     assert np.array_equal(ea.numpy(), e_max)
     spread_def = np.max(np.where(lsb_min >= 10000, 0, e_max - lsb_min + 1))
     cand = ((np.asarray(A.hi) & 0x7FFFFFFF) == 0) & (np.asarray(A.lo) != 0)
@@ -403,16 +417,14 @@ RUNG_CASES = {
 
 
 @pytest.mark.parametrize("case", list(RUNG_CASES))
-def test_plan_gemv_rung_matches_jax(case):
-    from exblas_tpu.ops.kernels.gemv_mxu import analyze_gemv_rows, analyze_z
-
+def test_plan_gemv_rung_matches_jax(case, jax_gemv):
     la, ha, lx, hx, expected = RUNG_CASES[case]
     rs = np.random.RandomState(90)
     a = (1.0 + rs.rand(M8, K8)) * np.exp2(rs.randint(la, ha, (M8, K8)))
     x = vec(K8, lx, hx, 91)
     A, X = split_f64(a), split_f64(x)
-    _, sp_a, _ = analyze_gemv_rows(A.hi, A.lo)
-    _, sp_z, _ = analyze_z(X.hi, X.lo)
+    _, sp_a, _ = jax_gemv.rows(A.hi, A.lo)
+    _, sp_z, _ = jax_gemv.z(X.hi, X.lo)
     want = next(((nwa, nwz) for nwa, nwz in JE._GEMV_RUNGS
                  if int(sp_a) <= 32 * nwa and int(sp_z) <= 32 * nwz), None)
     assert want == expected
@@ -433,7 +445,7 @@ def test_plan_gemv_k_cap_routes_exact(monkeypatch):
 
 # --- B9: the byte-plane path -------------------------------------------------
 
-def test_gemv_host_parts_match_jax():
+def test_gemv_host_parts_match_jax(jax_gemv):
     from exblas_tpu.ops.kernels import gemv_mxu as jmxu
 
     assert tmxu.MAX_K_MXU == jmxu.MAX_K_MXU
@@ -450,7 +462,7 @@ def test_gemv_host_parts_match_jax():
             x[5] = 5e-324
         X = split_f64(x)
         f, spread, special = tmxu.analyze_z(_bits(x))
-        w = jmxu.analyze_z(X.hi, X.lo)
+        w = jax_gemv.z(X.hi, X.lo)
         assert (int(f), int(spread), bool(special)) == (
             int(w[0]), int(w[1]), bool(w[2]))
         if int(spread) > 32 * nwz:
@@ -460,15 +472,14 @@ def test_gemv_host_parts_match_jax():
         assert np.array_equal(got.numpy(), np.asarray(zd)[:4 * nwz + 1][::-1])
 
 
-def _b9_interpret(a, x, beta, y, nwa, nwz):
+def _b9_interpret(jax_gemv, a, x, beta, y, nwa, nwz):
     from jax.experimental.pallas import tpu as pltpu
-    from exblas_tpu.ops.kernels.gemv_mxu import (analyze_gemv_rows,
-                                                 analyze_z, gemv_bits_mxu)
+    from exblas_tpu.ops.kernels.gemv_mxu import gemv_bits_mxu
 
     A, X, Y = split_f64(a), split_f64(x), split_f64(y)
     bh, bl = JE._scalar_bits(beta)
-    ea, _, _ = analyze_gemv_rows(A.hi, A.lo)
-    f, _, _ = analyze_z(X.hi, X.lo)
+    ea, _, _ = jax_gemv.rows(A.hi, A.lo)
+    f, _, _ = jax_gemv.z(X.hi, X.lo)
     with pltpu.force_tpu_interpret_mode():
         hi, lo = gemv_bits_mxu(A.hi, A.lo, X.hi, X.lo, ea, f, Y.hi, Y.lo,
                                bh, bl, mode_of(beta), nwa=nwa, nwz=nwz)
@@ -488,25 +499,25 @@ def _port_b9(a, x, beta, y, rung):
 M9, K9 = 40, 300
 
 
-def test_gemv_bits_mxu_matches_pallas_rung22(monkeypatch):
+def test_gemv_bits_mxu_matches_pallas_rung22(monkeypatch, jax_gemv):
     rs = np.random.RandomState(100)
     sgn = np.where(rs.rand(M9, K9) < 0.5, -1.0, 1.0)
     a = rs.uniform(0.5, 1.0, (M9, K9)) * sgn
     a.ravel()[::13] = 0.0
     x = rs.uniform(0.5, 1.0, K9) * np.where(rs.rand(K9) < 0.5, -1.0, 1.0)
     y = np.zeros(M9)
-    want = _b9_interpret(a, x, 0.0, y, 2, 2)
+    want = _b9_interpret(jax_gemv, a, x, 0.0, y, 2, 2)
     assert_bits(_port_b9(a, x, 0.0, y, (2, 2)), want, "(2, 2)")
     # all-negative A (the JAX kernel's sign-mask split case) and the int32
     # sums widened every 64 k: the same bits
     neg = -rs.uniform(0.5, 1.0, (M9, K9))
-    want = _b9_interpret(neg, x, 0.0, y, 2, 2)
+    want = _b9_interpret(jax_gemv, neg, x, 0.0, y, 2, 2)
     assert_bits(_port_b9(neg, x, 0.0, y, (2, 2)), want, "negative")
     monkeypatch.setattr(tmxu, "K_CHUNK", tmxu.KS)
     assert_bits(_port_b9(neg, x, 0.0, y, (2, 2)), want, "negative, K_CHUNK 64")
 
 
-def test_gemv_bits_mxu_matches_pallas_rung33_beta(monkeypatch):
+def test_gemv_bits_mxu_matches_pallas_rung33_beta(monkeypatch, jax_gemv):
     rs = np.random.RandomState(101)
     a = rs.uniform(0.5, 1.0, (M9, K9))
     a[:, ::3] *= 2.0 ** -25                  # ~78-bit rows: rung (3, 3)
@@ -514,7 +525,7 @@ def test_gemv_bits_mxu_matches_pallas_rung33_beta(monkeypatch):
     x[0] = 1.0
     y = rs.uniform(-4.0, 4.0, M9)
     y[1] = 2.0 ** -1070
-    want = _b9_interpret(a, x, 2.5, y, 3, 3)
+    want = _b9_interpret(jax_gemv, a, x, 2.5, y, 3, 3)
     assert_bits(_port_b9(a, x, 2.5, y, (3, 3)), want, "(3, 3) beta")
     monkeypatch.setattr(tmxu, "K_CHUNK", tmxu.KS)
     assert_bits(_port_b9(a, x, 2.5, y, (3, 3)), want,

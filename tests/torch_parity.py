@@ -6,6 +6,8 @@ accumulators.  Tolerance is zero throughout."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -30,12 +32,20 @@ def port_state(acc):
     return d.numpy(), bool(neg), acc.special.numpy().astype(np.int64)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_canonicalize():
+    """The JAX package's ``canonicalize_digits``, compiled once a shape (it
+    runs op by op, each call, when called eagerly)."""
+    import jax
+    from exblas_tpu.core.rounding import canonicalize_digits as jcanon
+
+    return jax.jit(jcanon)
+
+
 def jax_state(acc):
     """(digits, negative, special) of a JAX Superacc, canonicalized by the
     JAX package's own ``canonicalize_digits``."""
-    from exblas_tpu.core.rounding import canonicalize_digits as jcanon
-
-    d, neg = jcanon(acc.limbs)
+    d, neg = _jax_canonicalize()(acc.limbs)
     return (np.asarray(d).astype(np.int32), bool(neg),
             np.asarray(acc.special).astype(np.int64))
 
