@@ -11,16 +11,22 @@ slice of the port:
 
 * ExSUM/ExDOT: holds the exact kernels B2/B4 bit for bit against their
   plain PyTorch versions at n in {1, 17, 2^20+3, 2^24} on every listed
-  distribution (specials included); holds the anchored-window kernels B11
+  distribution (specials included), and B2 also on 300-binade data, a
+  miss-heavy cancellation and its int32 limbs' spill bound, each at both
+  start offsets mod 16; holds the anchored-window kernels B11
   (``sum_flat_cuda``, windows of 96, 128 and 160 bits) and B12
   (``dot_flat_cuda``) against theirs at n in {1, 17, 65539, 2^20+3, 2^24}
   on the BLAS-1 benchmark data and edge cases (subnormals, zeros, all
   negative, cancellation to +0, NaN/+Inf/-Inf, zeros against uncovered
   partners, subnormal products) at the exact anchor, 8 bits above it and
   one bit below it (the flag every time, the window sums where it is
-  clear, the host's exact value on the smaller sizes), and the rounding
+  clear, the host's exact value on the smaller sizes), and B12 also at
+  the four start alignments of its vectors on the lognormal bench pair
+  and on products at its frame's top and bottom (every term); prints B2's
+  and B12's registers and spills (a spill fails); and the rounding
   kernel B3 (``round_scaled_terms_cuda``) on 10,000 random term vectors
-  (200 also against Fraction rounding); drives the public API
+  (half of them of full-range int64 terms; 200 also against Fraction
+  rounding); drives the public API
   (``exsum``, ``exdot`` and their bits and Superacc entries) on CUDA
   tensors at n = 2^24 on the benchmark data of ``benchmarks/bench_sum.py``
   and ``bench_dot.py`` and on data too wide for any window: each call must
@@ -282,12 +288,74 @@ def phase_kernels(xt) -> dict:
             if not ok:
                 failures.append(f"dot n={n} {dist}")
             log(" ".join(line))
+    kernel_resources(SUM_RESOURCES)
+    n_b2 = 0
+    for n in B4_SIZES:
+        for name, x_np in b2_cases(xt, n):
+            n_b2 += 1
+            x0 = torch.from_numpy(x_np).cuda()
+            acc_p = sk.exsum_acc_torch(x0)
+            bits_p = int(sk.exsum_bits_torch(x0))
+            line = [f"B2 n={n} {name}:"]
+            for off in (0, 1):
+                x = offset_copy(x_np, off)
+                bits_k = int(sk.exsum_bits_cuda(x))
+                e = same_acc(sk.exsum_acc_cuda(x), acc_p)
+                errs["exsum_bits_cuda"] = max(errs["exsum_bits_cuda"],
+                                              bits_err(bits_k, bits_p))
+                errs["exsum_acc_cuda"] = max(errs["exsum_acc_cuda"], e)
+                ok = bits_k == bits_p and e == 0
+                if name == "cancellation" and bits_k != 0:
+                    ok = False
+                line.append(f"at +{off} {'==' if ok else '!='}")
+                if not ok:
+                    failures.append(f"B2 n={n} {name} at +{off}")
+            log(" ".join(line) + f" {u64(bits_p):#018x}")
     torch.cuda.synchronize()
     if failures:
         raise AssertionError(f"kernel != plain version: {failures}")
     log("kernels vs plain versions: bit-equal (tolerance 0) on "
-        f"{len(SIZES)} sizes x {len(DOT_DISTS)} distributions")
+        f"{len(SIZES)} sizes x {len(DOT_DISTS)} distributions, and B2 on "
+        f"{n_b2} cases x 2 start offsets")
     return errs
+
+
+# B2's warp accumulator: the kernel's registers, spills, shared memory and
+# resident blocks an SM (a spill fails)
+SUM_RESOURCES = (("exsum_attrs", (), "B2 sum kernel"),)
+
+
+def b2_cases(xt, n: int):
+    """(name, x) numpy data of n elements for B2's warp accumulator:
+    300 binades (most doubles miss the 64-bit window), a miss-heavy
+    cancellation to +0, and the spill bound: x[0] places warp 0's window
+    near 2^600, far above doubles whose digit 1 is 2^20 - 1, so each of
+    that warp's 2048 doubles between two spills adds 2^20 - 1 to one int32
+    limb (2^31 - 2^11 at 2^24)."""
+    seed = SEED + 5000 + n % 1009
+    yield "wide300", make_input(xt, "wide", n, seed)
+    v = make_input(xt, "wide", n // 2, seed + 1)
+    yield "cancellation", np.concatenate([v, -v[::-1], np.zeros(n % 2)])
+    x = np.full(n, 2.0 - 2.0 ** -52)
+    x[0] = 2.0 ** 600
+    yield "spill bound", x
+
+
+def kernel_resources(entries) -> None:
+    """Registers, local (spilled) bytes, shared memory and resident
+    blocks an SM of each (C entry, arguments, name), as the runtime
+    reports them; a spill fails."""
+    from exblas_tpu_torch.ops.kernels import _build
+
+    lib = _build.library()
+    out = torch.zeros(4, dtype=torch.int32)
+    for entry, args, name in entries:
+        _build.check(getattr(lib, entry)(*args, _build.ptr(out)), entry)
+        regs, local, shared, blocks = out.tolist()
+        log(f"{name}: {regs} registers, {local} local bytes, {shared} static "
+            f"shared bytes, {blocks} resident blocks an SM")
+        if local != 0:
+            raise AssertionError(f"{name} spills {local} bytes")
 
 
 def exact_dot_host(a: np.ndarray, b: np.ndarray, extra=()) -> float:
@@ -777,12 +845,41 @@ def phase_fast_kernels(xt) -> dict:
                 failures.append(f"B12 n={n}: a zero hid b's uncovered element")
             log(f"B12 n={n} {dist}: flags (anchors +0/+0, +8/+8, -1/+0, "
                 f"+0/-1) {flags}")
+    kernel_resources(DOT_FLAT_RESOURCES)
+    for n in FAST_SIZES:
+        seed = SEED + 907 + n % 991
+        for name, (a_np, b_np) in (
+                ("bench_lognormal", fast_pair(xt, "bench_lognormal", n, seed)),
+                ("frame edges", frame_edge_pair(n, seed + 2))):
+            a0, b0 = (torch.from_numpy(v).cuda() for v in (a_np, b_np))
+            ea, eb = sm.exact_anchor(a0), sm.exact_anchor(b0)
+            rp, bp = dm.dot_flat_torch(a0, b0, ea, eb)
+            line = [f"B12 n={n} {name}:"]
+            for oa, ob in B4_OFFSETS:
+                a, b = offset_copy(a_np, oa), offset_copy(b_np, ob)
+                rk_, bk = dm.dot_flat_cuda(a, b, ea, eb)
+                err = frame_err(rk_, bk, rp, bp)
+                if not torch.equal(rk_.cpu(), rp.cpu()):
+                    err = max(err, 1.0)
+                errs["dot_flat_cuda"] = max(errs["dot_flat_cuda"], err)
+                cases += 1
+                line.append(f"at ({oa},{ob}) {'==' if err == 0 else '!='}")
+                if err:
+                    failures.append(f"B12 n={n} {name} at ({oa},{ob})")
+            if (n <= 65539 and not bool(bp) and frame_value(rp)
+                    != host_dot_frame(a_np, b_np,
+                                      int(ea) + int(eb) + 2 - 320)):
+                failures.append(f"B12 n={n} {name}: != host dot")
+            log(" ".join(line) + f" flag {int(bool(bp))}")
     torch.cuda.synchronize()
 
     rs = np.random.RandomState(SEED)
     for k in range(B3_VECTORS):
         t = int(rs.randint(1, 129))
-        vals = rs.randint(-(1 << 52) + 1, 1 << 52, t, dtype=np.int64)
+        # every other vector takes full-range int64 terms, as B12's or any
+        # caller's terms may be; the others the JAX kernel's |v| < 2^52
+        top = (1 << 52) if k % 2 else (1 << 63) - 1
+        vals = rs.randint(1 - top, top, t, dtype=np.int64)
         pos = tuple(int(p) for p in rs.randint(0, 400, t))
         eadj = int(rs.randint(-1300, 1100))
         v = torch.from_numpy(vals)
@@ -802,9 +899,34 @@ def phase_fast_kernels(xt) -> dict:
         raise AssertionError(f"fast-path kernel != plain version: "
                              f"{failures[:20]}")
     log(f"fast-path kernels vs plain versions: bit-equal (tolerance 0) on "
-        f"{cases} B11/B12 cases and {B3_VECTORS} B3 vectors "
-        f"({B3_FRACTION} also against Fraction rounding)")
+        f"{cases} B11/B12 cases and {B3_VECTORS} B3 vectors, half of them "
+        f"full-range int64 ({B3_FRACTION} also against Fraction rounding)")
     return errs
+
+
+# B12: the kernel's registers, spills, shared memory and resident blocks
+# an SM at both load widths (a spill fails)
+DOT_FLAT_RESOURCES = (
+    ("dot_flat_attrs", (0,), "B12 dot kernel, 16-byte loads"),
+    ("dot_flat_attrs", (1,), "B12 dot kernel, 8-byte loads"))
+
+
+def frame_edge_pair(n: int, seed: int):
+    """(a, b) of full 53-bit significands at each window's top (leading
+    bit at the anchor 0) or bottom (LSB at 2^-159), chosen at random, with
+    signs alternating every element in a and every two in b: their
+    products sit at the frame's top (bit 214), bottom (bit 0) and middle,
+    their signs alternating."""
+    rs = np.random.RandomState(seed)
+
+    def side(k: int) -> np.ndarray:
+        m = rs.randint(1 << 52, 1 << 53, n, dtype=np.int64).astype(np.float64)
+        e = np.where(rs.rand(n) < 0.5, -52, -159)
+        x = np.ldexp(m, e) * np.where((np.arange(n) >> k) % 2 == 0, 1.0, -1.0)
+        x[0] = 2.0 - 2.0 ** -52  # the anchor: the window's top bit
+        return x
+
+    return side(0), side(1)
 
 
 def fraction_bits(v) -> int:
@@ -2033,22 +2155,6 @@ B4_SIZES = (1, 17, (1 << 20) + 3, N_BIG)
 B4_OFFSETS = ((0, 0), (1, 1), (1, 0), (0, 1))
 
 
-def rowdot_resources() -> None:
-    """Registers, local (spilled) bytes, shared memory and resident blocks
-    an SM of B4 and B7, as the runtime reports them; a spill fails."""
-    from exblas_tpu_torch.ops.kernels import _build
-
-    lib = _build.library()
-    out = torch.zeros(4, dtype=torch.int32)
-    for entry, args, name in ROW_DOT_KERNELS:
-        _build.check(getattr(lib, entry)(*args, _build.ptr(out)), entry)
-        regs, local, shared, blocks = out.tolist()
-        log(f"{name}: {regs} registers, {local} local bytes, {shared} static "
-            f"shared bytes, {blocks} resident blocks an SM")
-        if local != 0:
-            raise AssertionError(f"{name} spills {local} bytes")
-
-
 def b7_cases():
     """(name, a (m, k) bits on the card -- some read in place with lda >
     k --, z bits, negate_z) for B7."""
@@ -2132,7 +2238,7 @@ def phase_rowdot_kernels(xt) -> dict:
     from exblas_tpu_torch.ops.kernels import dot_kernel as dk
     from exblas_tpu_torch.ops.kernels import gemv_kernel as vk
 
-    rowdot_resources()
+    kernel_resources(ROW_DOT_KERNELS)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs = {"gemv_rows_acc_cuda": 0.0, "exdot_acc_cuda": 0.0,
             "exdot_bits_cuda": 0.0}

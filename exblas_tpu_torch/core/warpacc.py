@@ -14,14 +14,24 @@ DOT_FORMAT accumulator in three layers:
   12 digits of bits [0, 240) at limbs ``base..``, and -1 at limb
   ``base + 12`` when the sum is negative.
 
-This module is the plain model of that accumulator, used by the tests: a
-warp's products in the order its lanes add them (calls ``(c, lane)``) go
-through the same placement, hit test, spill cadence and flush, and the
-model reports the largest magnitude an int32 limb can reach between two
-spills, whatever the order of the atomics -- the kernels' overflow bound
-is that it stays below 2^31 (``SPILL_DIGITS`` digits below 2^20).  The
-call orders of the two kernels are :func:`row_calls` (B7, a warp a row)
-and :func:`dot_calls` (B4, a grid-stride loop).
+Kernel B2 (``csrc/sum_kernel.cu``, ``warpacc.cuh`` ``SumAcc``) gives each
+warp one SUM_FORMAT accumulator (112 limbs, bit 0 at 2^-1074) in the same
+layers, its window sized to one significand: a signed 160-bit sum a lane
+whose bit 0 is at limb ``base``; a *normal* double whose LSB position p
+lies in ``[20 base, 20 base + 64)`` is added to it whole, every other
+finite nonzero double (subnormals among them) adds its 4 signed digits to
+the int32 layer, and the flush writes 8 digits of bits [0, 160) at limbs
+``base..`` and -1 at limb ``base + 8`` when the sum is negative.
+
+This module is the plain model of those accumulators, used by the tests: a
+warp's products (or doubles) in the order its lanes add them (calls ``(c,
+lane)``) go through the same placement, hit test, spill cadence and flush,
+and the model reports the largest magnitude an int32 limb can reach
+between two spills, whatever the order of the atomics -- the kernels'
+overflow bound is that it stays below 2^31 (``SPILL_DIGITS`` digits below
+2^20).  The call orders of the kernels are :func:`row_calls` (B7, a warp a
+row), :func:`dot_calls` (B4) and :func:`sum_calls` (B2), the last two a
+persistent grid's loop.
 """
 
 from __future__ import annotations
@@ -29,15 +39,20 @@ from __future__ import annotations
 import torch
 
 from . import deposit as dep
-from .types import DOT_OFFSET_BITS, L_DOT, LIMB_BITS, LIMB_MASK
+from .types import (DOT_OFFSET_BITS, L_DOT, L_SUM, LIMB_BITS, LIMB_MASK,
+                    SUM_OFFSET_BITS)
 
-__all__ = ["SPILL_DIGITS", "WIN_SHIFT", "WIN_DIGITS", "product_digits",
-           "warp_accumulate", "row_calls", "dot_calls"]
+__all__ = ["SPILL_DIGITS", "WIN_SHIFT", "WIN_DIGITS", "SUM_WIN_DIGITS",
+           "SUM_PER_STEP", "product_digits", "sum_digits", "warp_accumulate",
+           "sum_warp_accumulate", "row_calls", "dot_calls", "sum_calls"]
 
 SPILL_DIGITS = 2048  # warpacc.cuh kSpillDigits: 2048 * (2^20 - 1) < 2^31
-WIN_SHIFT = 64       # kWinShift: the LSB offsets a window hit may have
-WIN_DIGITS = 12      # kWinDigits: the digits of a flushed window
+WIN_SHIFT = 64       # kWinShift, kSumWinShift: the LSB offsets a hit may have
+WIN_DIGITS = 12      # kWinDigits: the digits of a flushed product window
 N_DIGITS = 7         # digits of a product shifted by r < 20 (< 2^125)
+SUM_WIN_DIGITS = 8   # kSumWinDigits: the digits of a flushed 160-bit window
+SUM_DIGITS = 4       # digits of a significand shifted by r < 20 (< 2^73)
+SUM_PER_STEP = 8     # sum_kernel.cu kPerStep: the doubles a lane adds a step
 
 
 def product_digits(a_bits, b_bits):
@@ -69,6 +84,21 @@ def product_digits(a_bits, b_bits):
             t["ninf"])
 
 
+def sum_digits(bits):
+    """The doubles (int64 binary64 patterns) as kernel B2 splits them:
+    (valid, normal, p, digits (..., 4) signed, nan, pinf, ninf), where digit
+    t is bits [20t, 20t + 20) of the significand shifted left by
+    r = p % 20, with the double's sign, p = max(expfield, 1) - 1 the
+    position of its LSB in SUM_FORMAT (limb p // 20); zeros and specials
+    are not valid and have no digits."""
+    t = dep.sum_terms(bits, SUM_OFFSET_BITS)
+    expf = (bits >> 52) & 0x7FF
+    p = expf.clamp(min=1) - 1
+    digits = torch.stack(t["pieces"], -1)
+    return (t["valid"], expf != 0, p, digits, t["nan"], t["pinf"],
+            t["ninf"])
+
+
 def _carry_digits(d, n: int):
     """Canonical base-2^20 digits 0..n-1 of sum_j d[j] 2^(20 j) and the
     carry out of digit n - 1 (floor division)."""
@@ -94,27 +124,50 @@ def warp_accumulate(a_bits, b_bits, per_step: int, lead: int = 0,
     layer after the flush, as the kernel leaves it --, special counts int64
     (3,), the largest magnitude an int32 limb can reach between two
     spills)."""
+    valid, p, digits, nan, pinf, ninf = product_digits(a_bits, b_bits)
+    return _layers(valid, valid, p, digits, (nan, pinf, ninf), per_step,
+                   lead, spill_steps, L_DOT, WIN_DIGITS)
+
+
+def sum_warp_accumulate(x_bits, per_step: int = SUM_PER_STEP, lead: int = 0,
+                        spill_steps: int | None = None):
+    """One warp's SUM_FORMAT accumulator, as ``warpacc.cuh``'s SumAcc
+    builds it: ``x_bits`` int64 (C, 32), call c of lane l adds ``x[c, l]``
+    (0 where a lane has nothing); ``lead``, ``spill_steps`` and the result
+    as :func:`warp_accumulate`'s, with limbs (112,).  Only normal doubles
+    are window hits: a subnormal always takes the int32 layer."""
+    valid, normal, p, digits, nan, pinf, ninf = sum_digits(x_bits)
+    return _layers(valid, valid & normal, p, digits, (nan, pinf, ninf),
+                   per_step, lead, spill_steps, L_SUM, SUM_WIN_DIGITS)
+
+
+def _layers(valid, can_hit, p, digits, specials, per_step: int, lead: int,
+            spill_steps, n_limbs: int, win_digits: int):
+    """The three layers of a warp accumulator over its calls' terms (see
+    :func:`warp_accumulate`): ``valid`` terms place the window, those that
+    ``can_hit`` with an LSB in the window's first WIN_SHIFT bits are hits,
+    the other valid terms misses."""
     if spill_steps is None:
         spill_steps = SPILL_DIGITS // (32 * per_step)
-    valid, p, digits, nan, pinf, ninf = product_digits(a_bits, b_bits)
+    nd = digits.shape[-1]
     q = p // LIMB_BITS
-    limbs = torch.zeros(L_DOT + N_DIGITS + WIN_DIGITS, dtype=torch.int64)
-    special = torch.stack([nan.sum(), pinf.sum(), ninf.sum()])
+    limbs = torch.zeros(n_limbs + nd + win_digits, dtype=torch.int64)
+    special = torch.stack([s.sum() for s in specials])
     first = valid.reshape(-1).nonzero()
     if first.numel() == 0:
-        return limbs[:L_DOT], special, 0
+        return limbs[:n_limbs], special, 0
     base = max(int(q.reshape(-1)[first[0, 0]]) - 1, 0)
     sh = p - LIMB_BITS * base
-    hit = valid & (sh >= 0) & (sh < WIN_SHIFT)
+    hit = can_hit & (sh >= 0) & (sh < WIN_SHIFT)
     miss = valid & ~hit
     # the int32 layer: per interval between spills and limb, the sums of
     # the positive and of the negative digits bound every partial sum
-    c = torch.arange(a_bits.shape[0]).unsqueeze(1).expand_as(q)
+    c = torch.arange(valid.shape[0]).unsqueeze(1).expand_as(q)
     interval = torch.where(c < lead, c, lead + (c - lead) // (
         per_step * spill_steps))
     n_int = int(interval.max()) + 1
     cols = (interval * limbs.numel()).unsqueeze(-1) + q.unsqueeze(-1) + \
-        torch.arange(N_DIGITS)
+        torch.arange(nd)
     d = torch.where(miss.unsqueeze(-1), digits, torch.zeros_like(digits))
     pos = torch.zeros(n_int * limbs.numel(), dtype=torch.int64)
     neg = torch.zeros_like(pos)
@@ -123,20 +176,19 @@ def warp_accumulate(a_bits, b_bits, per_step: int, lead: int = 0,
     worst = int(torch.maximum(pos, neg).max())
     limbs += (pos - neg).view(n_int, -1).sum(0)
     # the window: its hits' digits at limbs q - base.., summed over the
-    # warp, then 12 canonical digits and the sign digit (-1 if negative)
-    rel = torch.zeros(WIN_DIGITS + 1, dtype=torch.int64)
+    # warp, then its canonical digits and the sign digit (-1 if negative)
+    rel = torch.zeros(win_digits + 1, dtype=torch.int64)
     dh = torch.where(hit.unsqueeze(-1), digits, torch.zeros_like(digits))
     at = torch.where(hit, q - base, torch.zeros_like(q)).unsqueeze(-1)
-    rel.index_add_(0, (at + torch.arange(N_DIGITS)).reshape(-1),
-                   dh.reshape(-1))
-    flushed, sign = _carry_digits(rel, WIN_DIGITS)
+    rel.index_add_(0, (at + torch.arange(nd)).reshape(-1), dh.reshape(-1))
+    flushed, sign = _carry_digits(rel, win_digits)
     if int(sign) not in (0, -1):
-        raise AssertionError(f"window sum beyond 2^240: carry {int(sign)}")
-    limbs[base:base + WIN_DIGITS] += flushed
-    limbs[base + WIN_DIGITS] += sign
-    if bool((limbs[L_DOT:] != 0).any()):
+        raise AssertionError(f"window sum beyond its bits: carry {int(sign)}")
+    limbs[base:base + win_digits] += flushed
+    limbs[base + win_digits] += sign
+    if bool((limbs[n_limbs:] != 0).any()):
         raise AssertionError("a digit fell past the format's top limb")
-    return limbs[:L_DOT], special, worst
+    return limbs[:n_limbs], special, worst
 
 
 def row_calls(a_row, z, head: int, per_step: int = 8):
@@ -199,3 +251,15 @@ def dot_calls(a, b, grid: int, w: int, head: int, threads: int = 256,
                 av[0, 1], bv[0, 1] = a[tail], b[tail]
         out.append((av, bv, lead))
     return out
+
+
+def sum_calls(x, grid: int, head: int, threads: int = 256,
+              per_step: int = SUM_PER_STEP):
+    """B2's calls (``csrc/sum_kernel.cu``) for a grid of ``grid`` blocks of
+    ``threads``: a list, warp by warp, of (x (C, 32), lead).  Pairs of
+    elements in 16-byte loads after ``head`` (0 or 1) elements taken alone,
+    in the order of :func:`dot_calls` with ``w`` 2: block 0's warp 0 first
+    adds the head element (lane 0) and the element left past the pairs
+    (lane 1) as one lead call."""
+    return [(av, lead) for av, _, lead in dot_calls(
+        x, x, grid, 2, head, threads=threads, per_step=per_step)]

@@ -35,6 +35,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "exsum_acc_cuda": (_P, _N, _P, _P, _P, _P),
     "exsum_bits_cuda": (_P, _N, _P, _P, _P),
+    "exsum_attrs": (_P,),
     "exdot_acc_cuda": (_P, _P, _N, _P, _P, _P, _P),
     "exdot_bits_cuda": (_P, _P, _N, _P, _P, _P),
     "exdot_attrs": (_I, _P),
@@ -55,6 +56,7 @@ SIGNATURES = {
     "trsv_lower_x_cuda": (_P, _P, _N, _I, _I, _I, _P, _P, _P, _P),
     "sum_flat_cuda": (_P, _N, _P, _I, _P, _P),
     "dot_flat_cuda": (_P, _P, _N, _P, _P, _P, _P),
+    "dot_flat_attrs": (_I, _P),
     "round_terms_cuda": (_P, _P, _I, _I, _P, _I, _P, _P),
 }
 

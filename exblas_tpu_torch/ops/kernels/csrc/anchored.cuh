@@ -1,6 +1,7 @@
-// The anchored-window arithmetic of kernels B11 (sum_mxu.cu) and B12
-// (dot_mxu.cu): every covered element (or product) is an integer Y * 2^sh
-// in a fixed frame of NW 32-bit words, sh >= 0, added to NW word sums.
+// The anchored-window arithmetic of kernel B11 (sum_mxu.cu): every
+// covered element is an integer Y * 2^sh in a fixed frame of NW 32-bit
+// words, sh >= 0, added to NW word sums.  (B12, dot_mxu.cu, keeps its
+// frame in shared memory instead and uses none of this.)
 //
 // A negative term enters as its NW-word two's complement U = 2^(32 NW) - X
 // and counts once towards a negative count c, so that the exact sum is

@@ -1,4 +1,7 @@
-// Deposits shared by the ExSUM, ExDOT and ExGEMM kernels.
+// Deposits shared by the exact kernels: product decoding and digits (B4,
+// B6-B10), the grid of the window kernel B11, and the register bins of
+// BinWindow, which only the solve B10 uses (B2 and B4 keep warp-owned
+// accumulators, warpacc.cuh).
 //
 // A deposit adds one exact term -- a significand (ExSUM, < 2^73) or a
 // product of significands (ExDOT, < 2^125), already shifted left by its

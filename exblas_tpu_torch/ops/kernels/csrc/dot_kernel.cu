@@ -40,6 +40,7 @@
 
 #include "deposit.cuh"
 #include "round.cuh"
+#include "stream.cuh"
 #include "warpacc.cuh"
 
 namespace {
@@ -53,41 +54,6 @@ constexpr int kPerStep = 4;  // products a thread adds a step
 constexpr int kWs = kDotLimbs + 3;  // limbs, NaN, +Inf, -Inf; then the ticket
 
 using Acc = exblas::WarpAcc<kPerStep>;
-
-// W elements of each vector a load: 2 (16-byte loads) or 1; av(j), bv(j)
-// are the j-th elements of a and b.
-template <int W>
-struct Unit;
-
-template <>
-struct Unit<2> {
-  longlong2 a, b;
-  __device__ __forceinline__ void load(const long long* pa,
-                                       const long long* pb, long long i,
-                                       long long nu) {
-    if (i < nu) {
-      a = __ldcs(reinterpret_cast<const longlong2*>(pa) + i);
-      b = __ldcs(reinterpret_cast<const longlong2*>(pb) + i);
-    } else {
-      a.x = a.y = b.x = b.y = 0LL;
-    }
-  }
-  __device__ __forceinline__ long long av(int j) const { return j ? a.y : a.x; }
-  __device__ __forceinline__ long long bv(int j) const { return j ? b.y : b.x; }
-};
-
-template <>
-struct Unit<1> {
-  long long a, b;
-  __device__ __forceinline__ void load(const long long* pa,
-                                       const long long* pb, long long i,
-                                       long long nu) {
-    a = i < nu ? __ldcs(pa + i) : 0LL;
-    b = i < nu ? __ldcs(pb + i) : 0LL;
-  }
-  __device__ __forceinline__ long long av(int) const { return a; }
-  __device__ __forceinline__ long long bv(int) const { return b; }
-};
 
 // a, b: n elements; the first `head` (0 or 1) of them apart, then nu
 // units of W elements from a + head, b + head (16-byte aligned when W ==
@@ -121,12 +87,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     acc.add_one(i < n ? a[i] : 0LL, i < n ? b[i] : 0LL);
     acc.spill();
   }
-  Unit<W> cur[kUnits];
+  exblas::PairUnit<W> cur[kUnits];
 #pragma unroll
   for (int u = 0; u < kUnits; ++u) cur[u].load(pa, pb, u * threads + tid, nu);
 #pragma unroll 1
   for (long long s = 0; s < steps; ++s) {
-    Unit<W> nxt[kUnits];
+    exblas::PairUnit<W> nxt[kUnits];
 #pragma unroll
     for (int u = 0; u < kUnits; ++u) {
       nxt[u].load(pa, pb, (s + 1) * per_step + u * threads + tid, nu);
@@ -198,21 +164,14 @@ template <int W>
 int launch_w(const long long* a, const long long* b, long long n, int head,
              long long* ws, int* limbs_out, int* special_out,
              unsigned long long* bits_out, cudaStream_t s) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dot_warp_kernel<W>, kThreads, 0);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long units = (n - head) / W;
   const long long want = (units + kThreads * (kPerStep / W) - 1) /
                          (kThreads * (kPerStep / W));
-  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int grid = static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+  int grid = 0;
+  const cudaError_t err = exblas::persistent_grid(
+      reinterpret_cast<const void*>(dot_warp_kernel<W>), kThreads, want,
+      &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dot_warp_kernel<W><<<grid, kThreads, 0, s>>>(a, b, n, head, ws, limbs_out,
                                                 special_out, bits_out);
   return static_cast<int>(cudaGetLastError());
@@ -261,15 +220,8 @@ int exdot_attrs(int which, void* out) {
   const void* fn = which == 0
                        ? reinterpret_cast<const void*>(dot_warp_kernel<2>)
                        : reinterpret_cast<const void*>(dot_warp_kernel<1>);
-  cudaFuncAttributes at;
-  cudaError_t err = cudaFuncGetAttributes(&at, fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int* o = static_cast<int*>(out);
-  o[0] = at.numRegs;
-  o[1] = static_cast<int>(at.localSizeBytes);
-  o[2] = static_cast<int>(at.sharedSizeBytes);
   return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[3], fn, kThreads, 0));
+      exblas::kernel_attrs(fn, kThreads, static_cast<int*>(out)));
 }
 
 }  // extern "C"

@@ -8,120 +8,150 @@
 // passes and power-of-two grid bucketing exist for the TPU's sequential
 // grid and int32 limbs; this kernel needs none of them.
 //
-// Bound on the H100: the stream reads 8 bytes per element and does a few
-// dozen integer operations on it, so HBM bandwidth (3.35 TB/s) is the
-// natural bound: 2^24 elements are 128 MiB, about 40 us.  The design:
-//   * one grid-stride pass with coalesced 8-byte loads, four elements in
-//     flight per thread;
-//   * each element's significand, shifted to its offset in base limb q,
-//     is added whole into a per-thread signed 192-bit bin in registers when
-//     q falls in the warp's window of 4 limbs (deposit.cuh) -- for
-//     realistic exponent ranges, the counterpart of the TPU kernel's
-//     single-window fast path (sum_kernel.py:150-174), every element does --
-//     and otherwise split into four signed 20-bit pieces added to limbs
-//     q..q+3 of a per-block int64 accumulator in shared memory by integer
-//     atomics; the bins are split, summed over the warp and added to the
-//     shared accumulator once, at the end.  A limb takes at most one piece
-//     below 2^20 per element and per flushed bin, so int64 limbs need no
-//     carry pass while n <= 2^42 (the wrapper checks);
-//   * NaN/+Inf/-Inf are counted beside the limbs;
-//   * blocks merge into one global int64 accumulator by integer atomics,
-//     and a one-block finishing kernel exports or rounds it (round.cuh).
+// Bound on the H100: the stream reads 8 bytes per element, so HBM
+// bandwidth (3.35 TB/s) is the natural bound: 2^24 elements are 128 MiB,
+// about 40 us.  At that pace an SM has about 70 cycles a warp-wide element
+// on each of its four schedulers, half of them for the integer pipe, so
+// the hit path is kept near 30 instructions an element.  The design:
+//   * one persistent launch, its grid as many blocks as the occupancy
+//     calculator lets every SM hold (stream.cuh);
+//   * every thread streams x with 16-byte loads, kPerStep elements a step
+//     (4 loads: 48 KB in flight an SM at three blocks), the next step's
+//     loads issued before the current step is decoded; where x starts 8
+//     bytes off 16 its first element is taken alone;
+//   * each element is added to its warp's accumulator (warpacc.cuh
+//     SumAcc): a normal double whose LSB falls in the warp's 64-bit hit
+//     range goes straight into a 160-bit register window by one carry
+//     chain; others (misses, subnormals) in a second pass only where a
+//     lane needs it, digit by digit into int32 shared limbs by native
+//     32-bit atomics, spilled into the warp's int64 limbs every
+//     kSpillSteps steps; NaN/+Inf/-Inf are counted and, like zeros,
+//     deposit nothing;
+//   * a block adds its warps' limbs and counts and merges them into the
+//     global workspace by 64-bit global integer atomics (native); the last
+//     block to arrive (a ticket counter) exports or rounds the sum
+//     (round.cuh finish), so a call is one launch after the workspace's
+//     zeroing.
 // Integer addition is associative, so the result does not depend on the
-// order of the atomics.  No floating-point arithmetic touches the data.
+// grid, the load width or the order of the atomics.  No floating-point
+// arithmetic touches the data.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "deposit.cuh"
 #include "round.cuh"
+#include "stream.cuh"
+#include "warpacc.cuh"
 
 namespace {
 
-using exblas::kLimbBits;
-using exblas::kLimbMask;
+using exblas::kSumLimbs;
 
-constexpr int kSumLimbs = 112;    // SUM_FORMAT.n_limbs
 constexpr int kSumOffset = 1074;  // SUM_FORMAT.offset_bits
-constexpr int kWs = kSumLimbs + 3;
-constexpr int kUnroll = 4;        // elements loaded per thread per step
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerStep = 8;  // elements a thread adds a step
+constexpr int kUnits = kPerStep / 2;  // 16-byte loads a thread a step
+constexpr int kWs = kSumLimbs + 3;  // limbs, NaN, +Inf, -Inf; then the ticket
 
-// Decode one double (int64 bits) into its base limb q and its significand
-// shifted left by r = p % 20, (m1:m0) < 2^73, to be added at limb q with
-// the double's sign.  NaN/+Inf/-Inf are counted and, like zeros, deposit
-// nothing (valid == false).
-__device__ __forceinline__ bool decode_sum(long long b, int& q,
-                                           unsigned long long& m0,
-                                           unsigned long long& m1,
-                                           long long& nan_c,
-                                           long long& pinf_c,
-                                           long long& ninf_c) {
-  const int expf = static_cast<int>((b >> 52) & 0x7FF);
-  const unsigned long long frac =
-      static_cast<unsigned long long>(b) & ((1ULL << 52) - 1ULL);
-  unsigned long long mant = 0ULL;
-  if (expf == 0x7FF) {
-    if (frac != 0ULL) {
-      ++nan_c;
-    } else if (b < 0) {
-      ++ninf_c;
-    } else {
-      ++pinf_c;
-    }
-  } else {
-    mant = expf != 0 ? (frac | (1ULL << 52)) : frac;
+using Acc = exblas::SumAcc<kPerStep>;
+
+// x: n elements; the first `head` (0 or 1) of them apart, then nu pairs
+// from x + head (16-byte aligned), then the element past head + 2 nu (at
+// most one) apart.
+__global__ void __launch_bounds__(kThreads, 3)
+    sum_warp_kernel(const long long* __restrict__ x, long long n, int head,
+                    long long* __restrict__ ws, int* limbs_out,
+                    int* special_out, unsigned long long* bits_out) {
+  __shared__ int s32[kWarps][exblas::kSumWarpLimbs];
+  __shared__ long long s64[kWarps][exblas::kSumWarpLimbs];
+  __shared__ long long s_cnt[kWarps][3];
+  __shared__ bool s_last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long nu = (n - head) / 2;
+  const long long tail = head + nu * 2;  // the element left over, if < n
+  const long long threads = static_cast<long long>(gridDim.x) * kThreads;
+  const long long tid = static_cast<long long>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  const long long per_step = kUnits * threads;
+  const long long steps = (nu + per_step - 1) / per_step;  // grid-uniform
+  const longlong2* px = reinterpret_cast<const longlong2*>(x + head);
+
+  Acc acc;
+  acc.init(s32[warp], s64[warp]);
+  if (blockIdx.x == 0 && warp == 0) {  // the head and the tail element
+    const long long i = lane == 0 && head ? 0 : (lane == 1 ? tail : n);
+    acc.add_one(i < n ? x[i] : 0LL);
+    acc.spill();
   }
-  // LSB bit position p = max(expf,1) - 1075 + 1074 >= 0; q = p / 20.
-  const int p = (expf != 0 ? expf : 1) - 1075 + kSumOffset;
-  q = p / kLimbBits;
-  const int r = p - q * kLimbBits;
-  m0 = mant << r;
-  m1 = r != 0 ? mant >> (64 - r) : 0ULL;
-  return mant != 0ULL;
-}
-
-__global__ void __launch_bounds__(exblas::kBlock)
-    sum_deposit_kernel(const long long* __restrict__ x, long long n,
-                       unsigned long long* __restrict__ ws) {
-  __shared__ unsigned long long s_acc[kWs];
-  for (int j = threadIdx.x; j < kWs; j += blockDim.x) s_acc[j] = 0ULL;
-  __syncthreads();
-
-  exblas::BinWindow<4> window;
-  long long nan_c = 0, pinf_c = 0, ninf_c = 0;
-  const long long step = static_cast<long long>(blockDim.x) * kUnroll;
-  // The loop bound is uniform over the block, so every lane of a warp takes
-  // part in the warp collectives; lanes past n decode +0.0, which deposits
-  // nothing.
-  for (long long base = blockIdx.x * step; base < n;
-       base += gridDim.x * step) {
-    long long b[kUnroll];
+  longlong2 cur[kUnits];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long i = base + u * blockDim.x + threadIdx.x;
-      b[u] = i < n ? x[i] : 0LL;
-    }
+  for (int u = 0; u < kUnits; ++u) {
+    const long long i = u * threads + tid;
+    cur[u] = i < nu ? __ldcs(px + i) : make_longlong2(0LL, 0LL);
+  }
+#pragma unroll 1
+  for (long long s = 0; s < steps; ++s) {
+    longlong2 nxt[kUnits];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      int q;
-      unsigned long long m0, m1;
-      const bool valid = decode_sum(b[u], q, m0, m1, nan_c, pinf_c, ninf_c);
-      window.add(valid, q, m0, m1, b[u] < 0, s_acc);
+    for (int u = 0; u < kUnits; ++u) {
+      const long long i = (s + 1) * per_step + u * threads + tid;
+      nxt[u] = i < nu ? __ldcs(px + i) : make_longlong2(0LL, 0LL);
+    }
+    if (acc.unplaced()) {
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        acc.place(cur[u].x);
+        acc.place(cur[u].y);
+      }
+    }
+    unsigned rare = 0u;
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      rare |= static_cast<unsigned>(acc.add_hit(cur[u].x)) << (2 * u);
+      rare |= static_cast<unsigned>(acc.add_hit(cur[u].y)) << (2 * u + 1);
+    }
+    if (__any_sync(exblas::kFullMask, rare != 0u)) {
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        acc.add_rare(cur[u].x, (rare >> (2 * u)) & 1u);
+        acc.add_rare(cur[u].y, (rare >> (2 * u + 1)) & 1u);
+      }
+    }
+    if ((s + 1) % Acc::kSpillSteps == 0) acc.spill();
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) cur[u] = nxt[u];
+  }
+  acc.flush();
+  long long nan_t, pinf_t, ninf_t;
+  acc.special_totals(nan_t, pinf_t, ninf_t);
+  if (lane < 3) {
+    s_cnt[warp][lane] = lane == 0 ? nan_t : (lane == 1 ? pinf_t : ninf_t);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < kWs; j += kThreads) {
+    long long v = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      v += j < kSumLimbs ? s64[w][j] : s_cnt[w][j - kSumLimbs];
+    }
+    if (v != 0LL) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(ws + j),
+                static_cast<unsigned long long>(v));
     }
   }
-  window.flush(s_acc);
-  exblas::deposit_specials(s_acc, kSumLimbs, nan_c, pinf_c, ninf_c);
+  __threadfence();  // this block's sums are in ws before its ticket
   __syncthreads();
-  for (int j = threadIdx.x; j < kWs; j += blockDim.x) {
-    if (s_acc[j] != 0ULL) atomicAdd(&ws[j], s_acc[j]);
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(reinterpret_cast<unsigned*>(ws + kWs), 1u) ==
+             gridDim.x - 1;
   }
-}
-
-__global__ void sum_finish_kernel(const long long* __restrict__ ws,
-                                  int* limbs_out, int* special_out,
-                                  unsigned long long* bits_out) {
-  __shared__ long long sum[kWs];
-  for (int j = threadIdx.x; j < kWs; j += blockDim.x) sum[j] = ws[j];
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  long long* sum = s64[0];
+  for (int j = threadIdx.x; j < kWs; j += kThreads) sum[j] = __ldcg(ws + j);
   __syncthreads();
   exblas::finish<kSumLimbs>(sum, kSumOffset, limbs_out, special_out,
                             bits_out);
@@ -129,18 +159,17 @@ __global__ void sum_finish_kernel(const long long* __restrict__ ws,
 
 int launch(const void* x, long long n, void* ws, void* limbs_out,
            void* special_out, void* bits_out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int head =
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 && n > 0 ? 1 : 0;
+  const long long want = ((n - head) / 2 + kThreads * kUnits - 1) /
+                         (kThreads * kUnits);
   int grid = 0;
-  cudaError_t err = exblas::deposit_grid(n, &grid);
+  const cudaError_t err = exblas::persistent_grid(
+      reinterpret_cast<const void*>(sum_warp_kernel), kThreads, want, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_deposit_kernel<<<grid, exblas::kBlock, 0, s>>>(
-      static_cast<const long long*>(x), n,
-      static_cast<unsigned long long*>(ws));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_finish_kernel<<<1, 128, 0, s>>>(
-      static_cast<const long long*>(ws), static_cast<int*>(limbs_out),
-      static_cast<int*>(special_out),
+  sum_warp_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(x), n, head, static_cast<long long*>(ws),
+      static_cast<int*>(limbs_out), static_cast<int*>(special_out),
       static_cast<unsigned long long*>(bits_out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -149,8 +178,9 @@ int launch(const void* x, long long n, void* ws, void* limbs_out,
 
 extern "C" {
 
-// x: n float64 values (read as int64 bits).  ws: 115 int64, zeroed by the
-// caller.  Writes 112 canonical int32 limbs and 3 int32 special counts.
+// x: n float64 values (read as int64 bits, 8-byte aligned).  ws: 116
+// int64 (115 sums and the ticket), zeroed by the caller.  Writes 112
+// canonical int32 limbs and 3 int32 special counts.
 int exsum_acc_cuda(const void* x, long long n, void* ws, void* limbs_out,
                    void* special_out, void* stream) {
   return launch(x, n, ws, limbs_out, special_out, nullptr, stream);
@@ -160,6 +190,14 @@ int exsum_acc_cuda(const void* x, long long n, void* ws, void* limbs_out,
 int exsum_bits_cuda(const void* x, long long n, void* ws, void* bits_out,
                     void* stream) {
   return launch(x, n, ws, nullptr, nullptr, bits_out, stream);
+}
+
+// out[0..3] = registers a thread, local (spilled) bytes, static shared
+// bytes and resident blocks an SM of the kernel.
+int exsum_attrs(void* out) {
+  return static_cast<int>(exblas::kernel_attrs(
+      reinterpret_cast<const void*>(sum_warp_kernel), kThreads,
+      static_cast<int*>(out)));
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // Warp-owned exact accumulators of the ExDOT and ExGEMV row kernels (B4,
-// B7).
+// B7) and, at the end of this file, of the ExSUM kernel (B2: SumAcc).
 //
 // A warp owns one DOT_FORMAT accumulator (216 limbs of 20 bits, bit 0 at
 // 2^-2148) in three layers:
@@ -133,6 +133,53 @@ __device__ __forceinline__ void red_shared_nz(int* p, int v) {
       : "memory");
 }
 
+// Zeroes a warp's int32 and int64 layers, kSlots limbs a lane (lane l
+// owns limbs l + 32 j).  All 32 lanes call.
+template <int kSlots>
+__device__ __forceinline__ void zero_layers(int* s32, long long* s64) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    s32[lane + 32 * j] = 0;
+    s64[lane + 32 * j] = 0LL;
+  }
+  __syncwarp();
+}
+
+// Moves a warp's int32 layer into its int64 layer, each lane its own
+// limbs.  All 32 lanes call.
+template <int kSlots>
+__device__ __forceinline__ void spill_layers(int* s32, long long* s64) {
+  __syncwarp();  // every lane's atomics are visible to the warp
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int l = lane + 32 * j;
+    s64[l] += s32[l];
+    s32[l] = 0;
+  }
+  __syncwarp();
+}
+
+// The warp's NaN, +Inf and -Inf counts, in every lane (*_t); zeroes the
+// lanes' own (*_c).  All 32 lanes call.
+__device__ __forceinline__ void warp_specials(long long& nan_c,
+                                              long long& pinf_c,
+                                              long long& ninf_c,
+                                              long long& nan_t,
+                                              long long& pinf_t,
+                                              long long& ninf_t) {
+  nan_t = nan_c;
+  pinf_t = pinf_c;
+  ninf_t = ninf_c;
+  if (__any_sync(kFullMask, (nan_c | pinf_c | ninf_c) != 0LL)) {
+    nan_t = warp_sum(nan_t);
+    pinf_t = warp_sum(pinf_t);
+    ninf_t = warp_sum(ninf_t);
+  }
+  nan_c = pinf_c = ninf_c = 0LL;
+}
+
 // kPerStep: the products a lane adds in a step at most.  Every member
 // function is called by all 32 lanes of the warp together.  A step:
 //   if (acc.unplaced()) for each product: acc.place(a, b);
@@ -159,13 +206,7 @@ struct WarpAcc {
   __device__ __forceinline__ void init(int* s32_, long long* s64_) {
     s32 = s32_;
     s64 = s64_;
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int j = 0; j < kWarpSlots; ++j) {
-      s32[lane + 32 * j] = 0;
-      s64[lane + 32 * j] = 0LL;
-    }
-    __syncwarp();
+    zero_layers<kWarpSlots>(s32, s64);
     base = -1;
     missed = false;
     nan_c = pinf_c = ninf_c = 0LL;
@@ -310,15 +351,7 @@ struct WarpAcc {
   __device__ __forceinline__ void spill() {
     settle();
     if (!__any_sync(kFullMask, missed)) return;
-    __syncwarp();  // every lane's atomics are visible to the warp
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int j = 0; j < kWarpSlots; ++j) {
-      const int l = lane + 32 * j;
-      s64[l] += s32[l];
-      s32[l] = 0;
-    }
-    __syncwarp();
+    spill_layers<kWarpSlots>(s32, s64);
     missed = false;
   }
 
@@ -344,15 +377,237 @@ struct WarpAcc {
   __device__ __forceinline__ void special_totals(long long& nan_t,
                                                  long long& pinf_t,
                                                  long long& ninf_t) {
-    nan_t = nan_c;
-    pinf_t = pinf_c;
-    ninf_t = ninf_c;
-    if (__any_sync(kFullMask, (nan_c | pinf_c | ninf_c) != 0LL)) {
-      nan_t = warp_sum(nan_t);
-      pinf_t = warp_sum(pinf_t);
-      ninf_t = warp_sum(ninf_t);
-    }
+    warp_specials(nan_c, pinf_c, ninf_c, nan_t, pinf_t, ninf_t);
+  }
+};
+
+// SUM_FORMAT (B2): 112 limbs of 20 bits, bit 0 at 2^-1074.  A warp owns
+// one such accumulator in the same three layers as WarpAcc's, with a
+// window sized to one significand:
+//   * the register window: one signed 160-bit sum a lane, two's
+//     complement, five 32-bit words, bit 0 at limb `base`.  A normal
+//     double whose LSB lies in the window's first 64 bits is a hit: its
+//     signed significand (|v| < 2^53), shifted there, is a 128-bit two's
+//     complement value, added with one five-word carry chain.  There is
+//     no carry-save form and no count to fold: the chain is five
+//     instructions, and a warp's terms are independent enough that their
+//     latency hides behind the other warps;
+//   * misses (other finite nonzero doubles, subnormals among them) add
+//     their 4 digits (|d| < 2^20) to int32 limbs by native 32-bit shared
+//     atomics, spilled on the kSpillDigits cadence into lane-owned int64
+//     limbs (4 a lane), as WarpAcc's;
+//   * NaN, +Inf and -Inf are counted; zeros add nothing.
+// Why nothing overflows: a hit is below 2^(53 + 63) = 2^116 and at most
+// n <= 2^42 (MAX_TERMS, checked by the wrappers) reach a warp, so the
+// warp's window sum is below 2^158: 160 bits hold it, its 8 digits and a
+// sign digit hold the flushed value; a limb takes at most one digit below
+// 2^20 per double, so the int32 layer stays below 2048 * 2^20 = 2^31
+// between spills and the int64 layer below 2^63.
+constexpr int kSumLimbs = 112;
+constexpr int kSumSlots = 4;                   // limbs a lane owns
+constexpr int kSumWarpLimbs = 32 * kSumSlots;  // 128 >= kSumLimbs
+constexpr int kSumWinShift = 64;               // LSB offsets a hit may have
+constexpr int kSumWinDigits = 8;               // digits of 160 bits
+static_assert(kSumLimbs <= kSumWarpLimbs, "a lane owns kSumSlots limbs");
+// The highest limb a flush writes: base <= 101 (the LSB of the largest
+// double sits at limb 102), plus kSumWinDigits digits and a sign digit.
+static_assert(101 + kSumWinDigits < kSumLimbs, "the flush stays in the format");
+
+// x << s and x >> s (arithmetic) for any s: PTX clamps s to 64, so s >= 64
+// gives 0 and the sign fill.
+__device__ __forceinline__ unsigned long long shl64(unsigned long long x,
+                                                    unsigned s) {
+  unsigned long long r;
+  asm("shl.b64 %0, %1, %2;" : "=l"(r) : "l"(x), "r"(s));
+  return r;
+}
+
+__device__ __forceinline__ long long sar64(long long x, unsigned s) {
+  long long r;
+  asm("shr.s64 %0, %1, %2;" : "=l"(r) : "l"(x), "r"(s));
+  return r;
+}
+
+// w += x over 160 bits, one carry chain.
+__device__ __forceinline__ void add160(unsigned (&w)[5], unsigned x0,
+                                       unsigned x1, unsigned x2, unsigned x3,
+                                       unsigned x4) {
+  asm("add.cc.u32 %0, %0, %5;\n\t"
+      "addc.cc.u32 %1, %1, %6;\n\t"
+      "addc.cc.u32 %2, %2, %7;\n\t"
+      "addc.cc.u32 %3, %3, %8;\n\t"
+      "addc.u32 %4, %4, %9;"
+      : "+r"(w[0]), "+r"(w[1]), "+r"(w[2]), "+r"(w[3]), "+r"(w[4])
+      : "r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(x4));
+}
+
+// kPerStep: the doubles a lane adds in a step at most.  Every member
+// function is called by all 32 lanes of the warp together.  A step:
+//   if (acc.unplaced()) for each double: acc.place(v);
+//   rare = 0; for each double i: rare |= acc.add_hit(v) << i;
+//   if (__any_sync(~0u, rare)) for each i: acc.add_rare(v, rare >> i & 1);
+template <int kPerStep>
+struct SumAcc {
+  static constexpr int kSpillSteps = kSpillDigits / (32 * kPerStep);
+  static_assert(kSpillSteps >= 1, "a step adds too many digits");
+
+  unsigned win[5];  // the window, two's complement, bit 0 at limb base
+  int base;         // the same in every lane; -1: not placed yet
+  int off;          // 20 * base + 1: a normal double's LSB is at bit e - 1
+  // off while unplaced: every exponent field lies below it, so no double
+  // is a hit (a warp's first step may hold only zeros and specials)
+  static constexpr int kUnplaced = 1 << 20;
+  bool missed;      // this lane added to the int32 layer since the last spill
+  long long nan_c, pinf_c, ninf_c;
+  int* s32;        // the warp's kSumWarpLimbs int32 limbs
+  long long* s64;  // the warp's kSumWarpLimbs int64 limbs
+
+  // Zeroes both shared layers and the registers.
+  __device__ __forceinline__ void init(int* s32_, long long* s64_) {
+    s32 = s32_;
+    s64 = s64_;
+    zero_layers<kSumSlots>(s32, s64);
+    base = -1;
+    off = kUnplaced;
+    missed = false;
     nan_c = pinf_c = ninf_c = 0LL;
+    clear_window();
+  }
+
+  __device__ __forceinline__ void clear_window() {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) win[i] = 0u;
+  }
+
+  __device__ __forceinline__ bool unplaced() const { return base < 0; }
+
+  // Places the window at the first finite nonzero double of the warp (the
+  // lowest lane's, at the first call with one): its base limb q0 - 1.
+  __device__ __forceinline__ void place(long long v) {
+    if (base >= 0) return;  // warp-uniform
+    const int e = static_cast<int>((v >> 52) & 0x7FF);
+    const bool valid = e != 0x7FF && (v & 0x7FFFFFFFFFFFFFFFLL) != 0;
+    const unsigned mask = __ballot_sync(kFullMask, valid);
+    if (mask == 0u) return;
+    const int p = (e > 1 ? e : 1) - 1;  // the LSB's bit in SUM_FORMAT
+    const int q0 = __shfl_sync(kFullMask, p, __ffs(mask) - 1) / 20;
+    base = q0 > 0 ? q0 - 1 : 0;
+    off = 20 * base + 1;
+  }
+
+  // Adds v (the int64 bits of a binary64) to the window if it is a hit,
+  // without a branch; returns whether it is a miss or a special, which
+  // add_rare must then take.  Zeros add nothing and return false.
+  __device__ __forceinline__ bool add_hit(long long v) {
+    const int e = static_cast<int>((v >> 52) & 0x7FF);
+    const int sh = e - off;  // the LSB's offset in the window (normals)
+    const bool hit = static_cast<unsigned>(sh) < kSumWinShift && e != 0x7FF;
+    const long long keep = hit ? -1LL : 0LL;
+    const long long neg = keep & (v >> 63);  // -1 for a negative hit
+    const long long mant =
+        ((v & ((1LL << 52) - 1)) | (1LL << 52)) & keep;
+    const long long sv = (mant ^ neg) - neg;  // +-significand, 0 if no hit
+    const unsigned long long lo = shl64(static_cast<unsigned long long>(sv),
+                                        static_cast<unsigned>(sh));
+    const long long hi = sar64(sv, static_cast<unsigned>(64 - sh));
+    add160(win, static_cast<unsigned>(lo), static_cast<unsigned>(lo >> 32),
+           static_cast<unsigned>(hi), static_cast<unsigned>(hi >> 32),
+           static_cast<unsigned>(neg));
+    return !hit && (v & 0x7FFFFFFFFFFFFFFFLL) != 0;
+  }
+
+  // One double alone (place, add_hit and add_rare).
+  __device__ __forceinline__ void add_one(long long v) {
+    place(v);
+    const bool rare = add_hit(v);
+    if (__any_sync(kFullMask, rare)) add_rare(v, rare);
+  }
+
+  // Takes a double add_hit returned true for (take): counts a NaN, +Inf
+  // or -Inf, or adds a miss digit by digit to the int32 layer.
+  __device__ __forceinline__ void add_rare(long long v, bool take) {
+    if (!take) return;
+    const int e = static_cast<int>((v >> 52) & 0x7FF);
+    const unsigned long long frac =
+        static_cast<unsigned long long>(v) & ((1ULL << 52) - 1ULL);
+    const bool negative = v < 0;
+    if (e == 0x7FF) {
+      if (frac != 0ULL) {
+        ++nan_c;
+      } else if (negative) {
+        ++ninf_c;
+      } else {
+        ++pinf_c;
+      }
+      return;
+    }
+    // a miss: finite, nonzero, outside the window or subnormal
+    const unsigned long long mant = frac | (e != 0 ? 1ULL << 52 : 0ULL);
+    const int p = (e > 1 ? e : 1) - 1;
+    const int q = p / 20, r = p - 20 * q;
+    const unsigned long long w[2] = {mant << r, (mant >> 1) >> (63 - r)};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int dig = static_cast<int>(digit_at<2>(w, t));
+      red_shared_nz(&s32[q + t], negative ? -dig : dig);
+    }
+    missed = true;
+  }
+
+  // Moves the int32 layer into the int64 layer, if a lane missed since the
+  // last spill.
+  __device__ __forceinline__ void spill() {
+    if (!__any_sync(kFullMask, missed)) return;
+    spill_layers<kSumSlots>(s32, s64);
+    missed = false;
+  }
+
+  // Bits [20t, 20t + 20) of the window (t < 8, known at run time).
+  __device__ __forceinline__ long long digit(int t) const {
+    const unsigned long long u[3] = {
+        win[0] | (static_cast<unsigned long long>(win[1]) << 32),
+        win[2] | (static_cast<unsigned long long>(win[3]) << 32),
+        static_cast<unsigned long long>(
+            static_cast<long long>(static_cast<int>(win[4])))};
+    const int lo = 20 * t;
+    const int wi = lo >> 6, sh = lo & 63;
+    const unsigned long long x = wi == 0 ? u[0] : (wi == 1 ? u[1] : u[2]);
+    const unsigned long long y = wi == 0 ? u[1] : u[2];
+    unsigned long long r = x >> sh;
+    if (sh > 44) r |= y << (64 - sh);
+    return static_cast<long long>(r & 0xFFFFFULL);
+  }
+
+  // Spills, then adds the window, summed over the warp, to the int64
+  // layer: its value V (|V| < 2^158, two's complement) is its 8 digits at
+  // limbs base.., plus -1 at limb base + 8 when V < 0.  Lane l adds the
+  // digit of limb base + ((l - base) mod 32), which it owns.  Leaves the
+  // window unplaced and the counts as they are.
+  __device__ __forceinline__ void flush() {
+    spill();
+    if (base < 0) return;  // warp-uniform: the warp saw no finite nonzero
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      unsigned x[5];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) x[i] = __shfl_xor_sync(kFullMask, win[i], o);
+      add160(win, x[0], x[1], x[2], x[3], x[4]);
+    }
+    const int o = ((threadIdx.x & 31) - base) & 31;
+    long long v = 0;
+    if (o < kSumWinDigits) v = digit(o);
+    if (o == kSumWinDigits && static_cast<int>(win[4]) < 0) v = -1;
+    if (o <= kSumWinDigits) s64[base + o] += v;
+    clear_window();
+    base = -1;
+    off = kUnplaced;
+  }
+
+  // The warp's NaN, +Inf and -Inf counts, in every lane; zeroes the lanes'.
+  __device__ __forceinline__ void special_totals(long long& nan_t,
+                                                 long long& pinf_t,
+                                                 long long& ninf_t) {
+    warp_specials(nan_c, pinf_c, ninf_c, nan_t, pinf_t, ninf_t);
   }
 };
 

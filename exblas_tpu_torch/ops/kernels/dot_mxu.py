@@ -8,13 +8,14 @@ Counterpart of ``exblas_tpu/ops/kernels/dot_mxu.py``:
   by its own 160-bit window below its anchor (ea, eb), the one static
   kernel of the JAX package (``dot_mxu.py:83-106``); every exact product
   of two covered significands lands at bit sha + shb in [0, 214] of a
-  320-bit frame whose bit 0 has exponent ea + eb + 2 - 320, and the frame's
-  ten 32-bit words are summed exactly.  ``rel`` is 11 int64 terms, term k
-  at relative bit 32 k: the word sums and, last, minus the count of
-  negative products (``csrc/anchored.cuh``).  ``bad`` is set when a
-  nonzero element of either vector leaves its window (each side checked
-  on its own) or any element is NaN/Inf.  :func:`dot_flat_torch` is its
-  plain version and returns the same terms;
+  320-bit frame whose bit 0 has exponent ea + eb + 2 - 320, and the frame
+  is summed exactly.  ``rel`` is 11 int64 terms, term k at relative bit
+  32 k: the canonical digits of the exact sum, terms 0..9 in [0, 2^32) and
+  term 10 the sum shifted right by 320 bits (signed), so the terms do not
+  depend on how the kernel split its work.  ``bad`` is set when a nonzero
+  element of either vector leaves its window (each side checked on its
+  own) or any element is NaN/Inf; the terms are then meaningless.
+  :func:`dot_flat_torch` is its plain version and returns the same terms;
 * :func:`dot_bits_mxu` / :func:`dot_acc_limbs_mxu`: the terms rounded
   once by kernel B3, or shifted into absolute DOT_FORMAT limbs.
 
@@ -34,10 +35,11 @@ from ._build import check_cuda_f64, ptr, stream_of
 from .round_in_kernel import (round_scaled_terms_cuda,
                               round_scaled_terms_torch, term_limbs_count,
                               terms_to_limbs)
-from .sum_mxu import (_CHUNK, _bits, _check_anchor, _decode, _frame_terms,
+from .sum_mxu import (_CHUNK, _M32, _bits, _check_anchor, _decode,
                       _shifted_words, frame_positions)
 
-__all__ = ["dot_flat_cuda", "dot_flat_torch", "dot_bits_mxu",
+__all__ = ["dot_flat_cuda", "dot_flat_torch", "pair_words",
+           "signed_word_sums", "canonical_terms", "dot_bits_mxu",
            "dot_acc_limbs_mxu", "MAX_N_DOT_MXU", "WINDOW"]
 
 # The JAX package's bound (dot_mxu.py:71), which also keeps each word sum
@@ -68,7 +70,9 @@ def dot_flat_cuda(a: torch.Tensor, b: torch.Tensor, ea: torch.Tensor,
     n = _check_pair(a, b, "dot_flat_cuda")
     _check_anchor(ea, a.device, "dot_flat_cuda")
     _check_anchor(eb, a.device, "dot_flat_cuda")
-    ws = torch.zeros(FRAME_WORDS + 2, dtype=torch.int64, device=a.device)
+    # the terms, the flag and the ticket that tells the last block to
+    # carry the terms into their canonical digits
+    ws = torch.zeros(FRAME_WORDS + 3, dtype=torch.int64, device=a.device)
     with torch.cuda.device(a.device):
         err = _build.library().dot_flat_cuda(
             ptr(a), ptr(b), n, ptr(ea), ptr(eb), ptr(ws),
@@ -80,6 +84,37 @@ def dot_flat_cuda(a: torch.Tensor, b: torch.Tensor, ea: torch.Tensor,
 
 
 dot_flat_cuda.launches = 0
+
+
+def pair_words(va, vb, base_a, base_b):
+    """Kernel B12's view of pairs of int64 bit patterns against the windows
+    whose bit 0 has exponent ``base_a``, ``base_b``: (words, q, neg, bad),
+    the five 32-bit words y_0..y_4 of ma * mb << (s % 32) (0 for a pair not
+    covered on both sides), placed at frame words q + j with q = s // 32,
+    negative where the product is, and the flag of each pair."""
+    ma, sha, add_a, bad_a = _decode(va, base_a, WINDOW)
+    mb, shb, add_b, bad_b = _decode(vb, base_b, WINDOW)
+    add = add_a & add_b
+    ma = torch.where(add, ma, 0)
+    s = torch.where(add, sha + shb, 0)
+    la = [(ma >> (16 * i)) & 0xFFFF for i in range(4)]
+    lb = [(mb >> (16 * j)) & 0xFFFF for j in range(4)]
+    prod = [sum(la[i] * lb[k - i] for i in range(4) if 0 <= k - i < 4)
+            for k in range(7)]                          # each < 2^34
+    return (_shifted_words(prod, s & 31, 5), s >> 5, add & ((va ^ vb) < 0),
+            bad_a | bad_b)
+
+
+def signed_word_sums(words, q, neg) -> torch.Tensor:
+    """The word sums B12's threads keep (11 int64): at frame word d, the
+    words y_{d - q} of the positive products minus those of the negative
+    ones."""
+    sums = []
+    for d in range(FRAME_WORDS + 1):
+        w = sum(torch.where(q == d - j, y, 0)
+                for j, y in enumerate(words) if d - j >= 0)
+        sums.append(torch.where(neg, -w, w).sum())
+    return torch.stack(sums)
 
 
 def dot_flat_torch(a: torch.Tensor, b: torch.Tensor, ea, eb):
@@ -96,21 +131,25 @@ def dot_flat_torch(a: torch.Tensor, b: torch.Tensor, ea, eb):
     rel = torch.zeros(FRAME_WORDS + 1, dtype=torch.int64, device=dev)
     bad = torch.zeros((), dtype=torch.bool, device=dev)
     for c in range(0, bits_a.numel(), _CHUNK):
-        va, vb = bits_a[c:c + _CHUNK], bits_b[c:c + _CHUNK]
-        ma, sha, add_a, bad_a = _decode(va, base_a, WINDOW)
-        mb, shb, add_b, bad_b = _decode(vb, base_b, WINDOW)
-        add = add_a & add_b
-        ma = torch.where(add, ma, 0)
-        s = torch.where(add, sha + shb, 0)
-        la = [(ma >> (16 * i)) & 0xFFFF for i in range(4)]
-        lb = [(mb >> (16 * j)) & 0xFFFF for j in range(4)]
-        prod = [sum(la[i] * lb[k - i] for i in range(4) if 0 <= k - i < 4)
-                for k in range(7)]                      # each < 2^34
-        words = _shifted_words(prod, s & 31, 5)
-        rel += _frame_terms(words, s >> 5, add & ((va ^ vb) < 0),
-                            FRAME_WORDS)
-        bad |= (bad_a | bad_b).any()
-    return rel, bad
+        words, q, neg, bad_c = pair_words(bits_a[c:c + _CHUNK],
+                                          bits_b[c:c + _CHUNK], base_a,
+                                          base_b)
+        rel += signed_word_sums(words, q, neg)
+        bad |= bad_c.any()
+    return canonical_terms(rel), bad
+
+
+def canonical_terms(rel: torch.Tensor) -> torch.Tensor:
+    """The canonical form of frame terms (term k at bit 32 k) of the same
+    value: one carry pass, terms 0..9 in [0, 2^32) and the last term the
+    value >> 320 (floor), as kernel B12's last block writes them."""
+    out, carry = [], torch.zeros((), dtype=torch.int64, device=rel.device)
+    for k in range(FRAME_WORDS):
+        t = rel[k] + carry
+        out.append(t & _M32)
+        carry = t >> 32
+    out.append(rel[FRAME_WORDS] + carry)
+    return torch.stack(out)
 
 
 def _e_frame(ea, eb) -> torch.Tensor:

@@ -8,11 +8,12 @@ Counterparts of ``exblas_tpu/ops/kernels/sum_kernel.py``:
 * :func:`exsum_bits_cuda` <- ``exsum_bits_pallas``: the same deposit, then
   the correctly rounded double computed on the device (``csrc/round.cuh``).
 
-Both launch one deposit kernel and one finishing kernel on the current
-stream.  They take CUDA float64 tensors only and never fall back: any other
-input raises.  ``exsum_acc_torch`` and ``exsum_bits_torch`` are the plain
-versions the CPU path and the comparisons on the card use.  Each wrapper
-counts its launches in its ``launches`` attribute.
+Both are one launch on the current stream after the workspace's zeroing
+(the last block to finish exports or rounds the sum).  They take CUDA
+float64 tensors only and never fall back: any other input raises.
+``exsum_acc_torch`` and ``exsum_bits_torch`` are the plain versions the
+CPU path and the comparisons on the card use.  Each wrapper counts its
+launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ from ...core.types import L_SUM, N_SPECIAL, SUM_FORMAT, Superacc
 from . import _build
 from ._build import check_cuda_f64, ptr, stream_of
 
+# The kernel's workspace: the limbs, the special counts and the ticket that
+# tells the last block to finish (csrc/sum_kernel.cu).
+_WS = L_SUM + N_SPECIAL + 1
+
 
 def exsum_acc_cuda(x: torch.Tensor) -> Superacc:
     """Exact sum of a CUDA float64 tensor -> Superacc (canonical limbs)."""
@@ -33,7 +38,7 @@ def exsum_acc_cuda(x: torch.Tensor) -> Superacc:
     n = x.numel()
     check_n_terms(n)
     lib = _build.library()
-    ws = torch.zeros(L_SUM + N_SPECIAL, dtype=torch.int64, device=x.device)
+    ws = torch.zeros(_WS, dtype=torch.int64, device=x.device)
     limbs = torch.empty(L_SUM, dtype=torch.int32, device=x.device)
     special = torch.empty(N_SPECIAL, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
@@ -52,7 +57,7 @@ def exsum_bits_cuda(x: torch.Tensor) -> torch.Tensor:
     n = x.numel()
     check_n_terms(n)
     lib = _build.library()
-    ws = torch.zeros(L_SUM + N_SPECIAL, dtype=torch.int64, device=x.device)
+    ws = torch.zeros(_WS, dtype=torch.int64, device=x.device)
     bits = torch.empty((), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.exsum_bits_cuda(ptr(x), n, ptr(ws), ptr(bits),

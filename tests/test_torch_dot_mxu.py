@@ -265,3 +265,89 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         dot_mxu.dot_flat_cuda(x, x, e, e)
     assert dot_mxu.dot_flat_cuda.launches == before
+
+
+# --- B12's terms: the canonical digits of the exact value ---------------------
+
+def _value(terms) -> int:
+    return sum(int(v) << (32 * k) for k, v in enumerate(terms.tolist()))
+
+
+def _flat_pairs(kind):
+    r = np.random.RandomState(13)
+    if kind == "mixed":
+        a = np.ldexp(r.uniform(0.5, 1, N_FLAT), r.randint(-50, 50, N_FLAT))
+        b = np.ldexp(r.uniform(0.5, 1, N_FLAT), r.randint(-50, 50, N_FLAT))
+        a *= np.where(r.rand(N_FLAT) < 0.5, -1.0, 1.0)
+        a[::11] = 0.0
+        return a, b
+    if kind == "frame_edges":
+        # full significands at each window's top (leading bit at 2^0) or
+        # bottom (LSB at 2^-159): products at frame bits 214, 107 and 0,
+        # signs alternating
+        def side(k):
+            m = r.randint(1 << 52, 1 << 53, N_FLAT).astype(np.float64)
+            x = np.ldexp(m, np.where(r.rand(N_FLAT) < 0.5, -52, -159))
+            return x * np.where((np.arange(N_FLAT) >> k) % 2 == 0, 1.0, -1.0)
+        a, b = side(0), side(1)
+        a[0] = b[0] = 2.0 - 2.0 ** -52
+        return a, b
+    # negative total: the top term is negative
+    a = -np.abs(np.ldexp(r.uniform(0.5, 1, N_FLAT),
+                         r.randint(-30, 30, N_FLAT)))
+    return a, np.abs(np.ldexp(r.uniform(0.5, 1, N_FLAT),
+                              r.randint(-30, 30, N_FLAT)))
+
+
+@pytest.mark.parametrize("kind", ["mixed", "frame_edges", "negative"])
+def test_dot_flat_terms_are_the_old_layouts_value(kind):
+    """The terms are the canonical digits (0 <= T_k < 2^32, T_10 the value
+    >> 320) of the same exact value as the earlier layout's terms: the
+    two's-complement word sums and minus the negative count at bit 320
+    (sum_mxu._frame_terms, B11's layout), and as the kernel's own signed
+    word sums."""
+    a, b = _flat_pairs(kind)
+    ea = int(sum_mxu.exact_anchor(_t(a)))
+    eb = int(sum_mxu.exact_anchor(_t(b)))
+    rel, bad = dot_mxu.dot_flat_torch(_t(a), _t(b), ea, eb)
+    assert not bool(bad)
+    va, vb = _t(a).view(torch.int64), _t(b).view(torch.int64)
+    base = 1 - dot_mxu.WINDOW
+    words, q, neg, _ = dot_mxu.pair_words(va, vb, ea + base, eb + base)
+    old = sum_mxu._frame_terms(words, q, neg, dot_mxu.FRAME_WORDS)
+    value = _value(old)
+    assert _value(rel) == value == _value(dot_mxu.signed_word_sums(
+        words, q, neg))
+    assert all(0 <= int(v) < 1 << 32 for v in rel[:-1].tolist())
+    assert int(rel[-1]) == value >> 320
+    if kind == "negative":
+        assert value < 0 and int(rel[-1]) < 0
+
+
+def test_dot_flat_word_sums_fit_int64_at_max_n():
+    """By the model: every word of a pair is below 2^32 (the largest
+    significands at every frame offset reach 2^32 - 1), so the sums of one
+    sign's words over MAX_N_DOT_MXU pairs -- what a thread, a block and the
+    workspace hold -- stay below 2^63, and the last block's carry pass over
+    the worst signed sums stays within int64."""
+    full = float((1 << 53) - 1)
+    # anchors 0 (windows from 2^-159): a's LSB at every covered shift sha,
+    # b's at the top (shb = 107), so the products take every frame offset
+    sh = np.arange(108)
+    a = np.ldexp(full, sh - 159)
+    b = np.ldexp(np.full(108, full), 107 - 159)
+    va, vb = _t(a).view(torch.int64), _t(b).view(torch.int64)
+    base = 1 - dot_mxu.WINDOW
+    words, q, neg, bad = dot_mxu.pair_words(va, vb, base, base)
+    assert not bool(bad.any()) and not bool(neg.any())
+    top = max(int(w.max()) for w in words)
+    assert top == (1 << 32) - 1
+    n = dot_mxu.MAX_N_DOT_MXU
+    worst = n * top
+    assert worst < 1 << 63
+    for sign in (1, -1):      # every sum at its worst, of either sign
+        carry = 0
+        for _ in range(dot_mxu.FRAME_WORDS + 1):
+            t = sign * worst + carry
+            assert -(1 << 63) <= t < 1 << 63
+            carry = t >> 32

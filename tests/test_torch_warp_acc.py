@@ -1,10 +1,11 @@
-"""The warp accumulator of the exact row and dot kernels B7 and B4
-(``csrc/warpacc.cuh``), in its plain model ``core/warpacc.py``, held bit for
-bit against the JAX package's Pallas kernels in interpret mode
-(``gemv_rows_acc_pallas``, ``exdot_pallas``) and the port's plain versions
-on adversarial data: digits at 2^20 - 1 that all miss the window, in the
-largest number the spill cadence lets an int32 limb take (its worst
-case), alternating signs, and specials.  Also the row kernel's geometry
+"""The warp accumulators of the exact row, dot and sum kernels B7, B4 and
+B2 (``csrc/warpacc.cuh``), in their plain model ``core/warpacc.py``, held
+bit for bit against the JAX package's Pallas kernels in interpret mode
+(``gemv_rows_acc_pallas``, ``exdot_pallas``, ``exsum_pallas``) and the
+port's plain versions on adversarial data: digits at 2^20 - 1 that all
+miss the window, in the largest number the spill cadence lets an int32
+limb take (its worst case), alternating signs, subnormals, the format's
+top limbs and specials.  Also the row kernel's geometry
 (``ops/kernels/gemv_kernel.py`` ``row_geometry``): every row and every k
 covered once, k split only for small m.  Tolerance is zero.  The kernels
 themselves are held against their plain versions on the card by
@@ -16,9 +17,10 @@ import torch
 
 from exblas_tpu.core.ieee import split_f64
 from exblas_tpu_torch.core import warpacc as wa
-from exblas_tpu_torch.core.types import DOT_FORMAT, Superacc
+from exblas_tpu_torch.core.types import DOT_FORMAT, SUM_FORMAT, Superacc
 from exblas_tpu_torch.ops.kernels import dot_kernel as tdot
 from exblas_tpu_torch.ops.kernels import gemv_kernel as tkern
+from exblas_tpu_torch.ops.kernels import sum_kernel as tsum
 from torch_parity import (assert_same_state, jax_state, pallas_interpret,
                           port_state)
 
@@ -223,4 +225,84 @@ def test_spill_cadence_is_what_bounds_the_int32_limbs():
     assert worst == WORST
     *_, worst = wa.warp_accumulate(av, zv, per_step=8, lead=lead,
                                    spill_steps=16)
+    assert worst == 2 * WORST > INT32_MAX
+
+
+# --- B2's accumulator: one significand a term, SUM_FORMAT --------------------
+
+# one lead element, then 8 steps of 8 doubles a lane: one spill interval
+N_SUM = 1 + wa.SUM_PER_STEP * 8 * 256
+SUM_KINDS = ("max_digits", "alternating", "wide_specials")
+
+
+def _sum_data(kind, head):
+    """x of one kind for a start ``head`` elements past 16 bytes (1: x[0]
+    is the lead call's; 0: no lead call, so n is even)."""
+    rs = np.random.RandomState(73)
+    if kind == "max_digits":
+        # x[0] places warp 0's window near 2^600; every other double is
+        # FULL ~ 2^1, far below it: each of 2048 misses adds 2^20 - 1 to
+        # the same int32 limb of warp 0
+        x = np.full(N_SUM - 1 + head, FULL)
+        x[0] = 2.0 ** 600
+        return x
+    if kind == "alternating":
+        # 120 binades: most doubles miss the 64-bit window
+        x = rs.uniform(0.5, 1.0, N_SUM) * np.exp2(rs.randint(-60, 60, N_SUM))
+        return x * np.where(np.arange(N_SUM) % 2 == 0, 1.0, -1.0)
+    n = 2001  # 1200 binades; the JAX kernel's time grows with the range
+    x = rs.uniform(-1, 1, n) * np.exp2(rs.randint(-600, 600, n))
+    x[:200] = rs.randint(1, 1 << 20, 200) * 5e-324       # subnormals
+    x[200:300] = np.ldexp(rs.uniform(0.5, 1.0, 100), 1024)  # top limbs
+    x[300:400] *= -1.0
+    x[::97] = 0.0
+    x[5], x[77], x[n - 1], x[1200] = np.inf, -np.inf, QNAN_PAYLOAD, -0.0
+    return x
+
+
+@pytest.fixture(scope="module")
+def jax_sums():
+    return {(kind, head): jax_state(pallas_interpret("exsum_pallas",
+                                                     _sum_data(kind, head)))
+            for kind in SUM_KINDS for head in (0, 1)
+            if head == 1 or kind == "max_digits"}
+
+
+def _sum_model(x, head, spill_steps=None):
+    limbs = torch.zeros(112, dtype=torch.int64)
+    special = torch.zeros(3, dtype=torch.int64)
+    worst = 0
+    for xv, lead in wa.sum_calls(_bits(x), grid=1, head=head):
+        l, s, w = wa.sum_warp_accumulate(xv, lead=lead,
+                                         spill_steps=spill_steps)
+        limbs += l
+        special += s
+        worst = max(worst, w)
+    return port_state(Superacc(limbs=limbs, special=special,
+                               fmt=SUM_FORMAT)), worst
+
+
+@pytest.mark.parametrize("kind", SUM_KINDS)
+@pytest.mark.parametrize("head", [1, 0],
+                         ids=["8 bytes off 16", "16-byte aligned"])
+def test_sum_model_matches_pallas(kind, head, jax_sums):
+    x = _sum_data(kind, head)
+    got, worst = _sum_model(x, head)
+    want = jax_sums[(kind, head if kind == "max_digits" else 1)]
+    assert_same_state(got, want, f"{kind} vs jax")
+    plain = tsum.exsum_acc_torch(torch.from_numpy(x))
+    assert_same_state(got, port_state(plain), f"{kind} vs plain")
+    assert worst <= INT32_MAX
+    if kind == "max_digits":
+        # aligned, x[0] takes a lane of warp 0's first step: 2047 misses
+        assert worst == WORST - (1 - head) * ((1 << 20) - 1)
+
+
+def test_sum_spill_cadence_is_what_bounds_the_int32_limbs():
+    """Twice the sum's cadence would let a limb pass 2^31 on its worst
+    case: 4096 misses of warp 0 at full digits."""
+    x = np.concatenate([_sum_data("max_digits", 1), np.full(N_SUM - 1, FULL)])
+    *_, worst = _sum_model(x, 1)
+    assert worst == WORST
+    *_, worst = _sum_model(x, 1, spill_steps=16)
     assert worst == 2 * WORST > INT32_MAX
