@@ -19,21 +19,26 @@ slice of the port:
   on the BLAS-1 benchmark data and edge cases (subnormals, zeros, all
   negative, cancellation to +0, NaN/+Inf/-Inf, zeros against uncovered
   partners, subnormal products) at the exact anchor, 8 bits above it and
-  one bit below it (the flag every time, the window sums where it is
-  clear, the host's exact value on the smaller sizes), and B12 also at
-  the four start alignments of its vectors on the lognormal bench pair
-  and on products at its frame's top and bottom (every term); prints B2's
-  and B12's registers and spills (a spill fails); and the rounding
-  kernel B3 (``round_scaled_terms_cuda``) on 10,000 random term vectors
-  (half of them of full-range int64 terms; 200 also against Fraction
-  rounding); drives the public API
+  one bit below it (the flag, the terms and the bits every time: each
+  kernel's one-launch window pass, rounded in its last block, against
+  the plain ``sum_bits_mxu``/``dot_bits_mxu`` and the two-launch path of
+  its terms and B3; the host's exact value on the smaller sizes), B11
+  also at four start offsets on the bench lognormal data and on elements
+  at its frame's two ends, and B12 at the four start alignments of its
+  vectors on the lognormal bench pair and on products at its frame's top
+  and bottom; prints B2's, B11's and B12's registers and spills (a spill
+  fails); and the rounding kernel B3 (``round_scaled_terms_cuda``) on
+  10,000 random term vectors (half of them of full-range int64 terms;
+  200 also against Fraction rounding); drives the public API
   (``exsum``, ``exdot`` and their bits and Superacc entries) on CUDA
   tensors at n = 2^24 on the benchmark data of ``benchmarks/bench_sum.py``
   and ``bench_dot.py`` and on data too wide for any window: each call must
   take the tier the JAX package's routing rules give (replayed in numpy),
-  launch the kernels that tier names, and match the exact kernels' bits
-  and state, the host's exact value, a permutation and a 7-way
-  partition; and checks that this path launched all seven kernels;
+  launch the kernels that tier names (one window kernel a window pass),
+  and match the exact kernels' bits and state, the host's exact value, a
+  permutation and a 7-way partition; and checks that this path launched
+  six of the seven kernels and not B3, whose rounding runs inside B11 and
+  B12;
 * ExGEMM: holds the exact kernel and the int8 slice kernel bit for bit
   against their plain versions on five shapes, ten distributions, every
   beta mode, both transposes and four rungs, and the exact kernel also on
@@ -499,12 +504,11 @@ def uncounted():
 
 
 def route_launches(route: tuple, window: str, exact: str) -> dict:
-    """The launches a bits call on ``route`` makes: each window pass runs
-    its window kernel and B3 (the flag is read after both), the exact tier
-    its exact kernel."""
+    """The launches a bits call on ``route`` makes: each window pass is one
+    launch of its window kernel, which rounds in its last block (B3 is not
+    launched), the exact tier one of its exact kernel."""
     passes = sum(t != "exact" for t in route)
-    want = {window: passes, "round_scaled_terms_cuda": passes,
-            exact: int(route[-1] == "exact")}
+    want = {window: passes, exact: int(route[-1] == "exact")}
     return {k: v for k, v in want.items() if v}
 
 
@@ -616,9 +620,14 @@ def phase_public_api(xt) -> dict:
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     log("launches on the main path:", launches)
-    missing = [k for k, v in launches.items() if v == 0]
+    # B3's rounding runs inside the window kernels' last blocks
+    missing = [k for k, v in launches.items()
+               if v == 0 and k != "round_scaled_terms_cuda"]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    if launches["round_scaled_terms_cuda"] != 0:
+        raise AssertionError("the main path launched B3: "
+                             f"{launches['round_scaled_terms_cuda']}")
     # numpy input runs on the card
     x_np = bench_sum_data(xt, 1 << 20)["lognormal"]
     with uncounted():
@@ -771,21 +780,73 @@ def host_dot_frame(a: np.ndarray, b: np.ndarray, e0: int) -> int:
 
 
 def frame_err(rk, bk, rp, bp) -> float:
-    """0 when two frames agree (flags always, terms where the flag is
-    clear), else their exact difference (1 for a flag mismatch)."""
+    """0 when two frames agree (flags and terms: the terms are the exact
+    sum of the covered elements, flag or not), else their exact difference
+    (1 for a flag mismatch)."""
     if bool(bk) != bool(bp):
         return 1.0
-    if bool(bk) or torch.equal(rk.cpu(), rp.cpu()):
+    if torch.equal(rk.cpu(), rp.cpu()):
         return 0.0
     return float(abs(frame_value(rk) - frame_value(rp)))
 
 
+def window_err(terms, flags, bits) -> float:
+    """0 when a window pass's versions agree: the two terms tensors and
+    the flags (kernel first, plain version second) by frame_err, every
+    flag alike, and every bits value alike (each bits value rounds the
+    terms, so they agree whatever the flag); else the largest
+    difference."""
+    err = frame_err(terms[0], flags[0], terms[1], flags[1])
+    if len({bool(f) for f in flags}) > 1:
+        err = max(err, 1.0)
+    ints = [int(b) for b in bits]
+    for b in ints[1:]:
+        err = max(err, bits_err(b, ints[0]))
+    return err
+
+
+def sum_window_pass(x, anchor, nwa: int):
+    """B11 at one window, every way the port has: its terms and flag, its
+    fused bits (one launch, rounded in its last block), the two-launch
+    path (its terms, then B3) and the plain sum_flat_torch and
+    sum_bits_mxu: (the difference as window_err gives it, the kernel's
+    terms, its flag)."""
+    from exblas_tpu_torch.ops.kernels import round_in_kernel as rk
+    from exblas_tpu_torch.ops.kernels import sum_mxu as sm
+
+    rel_k, bad_k = sm.sum_flat_cuda(x, anchor, nwa)
+    rel_p, bad_p = sm.sum_flat_torch(x, anchor, nwa)
+    fused, fbad = sm.sum_bits_mxu(x, anchor, nwa, True)
+    plain, pbad = sm.sum_bits_mxu(x, anchor, nwa, False)
+    two = rk.round_scaled_terms_cuda(rel_k, sm.frame_positions(nwa), anchor,
+                                     1 - 32 * nwa)
+    return window_err((rel_k, rel_p), (bad_k, bad_p, fbad, pbad),
+                      (fused, plain, two)), rel_k, bad_k
+
+
+def dot_window_pass(a, b, ea, eb):
+    """B12 as sum_window_pass holds B11."""
+    from exblas_tpu_torch.ops.kernels import dot_mxu as dm
+    from exblas_tpu_torch.ops.kernels import round_in_kernel as rk
+
+    rel_k, bad_k = dm.dot_flat_cuda(a, b, ea, eb)
+    rel_p, bad_p = dm.dot_flat_torch(a, b, ea, eb)
+    fused, fbad = dm.dot_bits_mxu(a, b, ea, eb, True)
+    plain, pbad = dm.dot_bits_mxu(a, b, ea, eb, False)
+    two = rk.round_scaled_terms_cuda(rel_k, dm.frame_positions(
+        dm.FRAME_WORDS), ea + eb, dm.FRAME_OFFSET)
+    return window_err((rel_k, rel_p), (bad_k, bad_p, fbad, pbad),
+                      (fused, plain, two)), rel_k, bad_k
+
+
 def phase_fast_kernels(xt) -> dict:
     """B11 (nwa 3, 4, 5) and B12 at the exact anchor, 8 bits above it and
-    one bit below it, against their plain versions: the flag every time,
-    the frame's terms where it is clear, the host's exact value on the
-    smaller sizes; B3 on random term vectors against its plain version on
-    the host's CPU and against Fraction rounding."""
+    one bit below it, against their plain versions and the two-launch path
+    (sum_window_pass, dot_window_pass): flags, terms and bits every time,
+    the host's exact value on the smaller sizes; B11 also at four start
+    offsets on the bench lognormal data and on elements at the frame's two
+    ends; B3 on random term vectors against its plain version on the
+    host's CPU and against Fraction rounding."""
     from fractions import Fraction
 
     from exblas_tpu_torch.ops.kernels import dot_mxu as dm
@@ -805,9 +866,7 @@ def phase_fast_kernels(xt) -> dict:
             for nwa in (3, 4, 5):
                 for de in (0, 8, -1):
                     anchor = e + de
-                    rk_, bk = sm.sum_flat_cuda(x, anchor, nwa)
-                    rp, bp = sm.sum_flat_torch(x, anchor, nwa)
-                    err = frame_err(rk_, bk, rp, bp)
+                    err, rk_, bk = sum_window_pass(x, anchor, nwa)
                     errs["sum_flat_cuda"] = max(errs["sum_flat_cuda"], err)
                     cases += 1
                     flags.append(int(bool(bk)))
@@ -829,9 +888,7 @@ def phase_fast_kernels(xt) -> dict:
             ea, eb = sm.exact_anchor(a), sm.exact_anchor(b)
             flags = []
             for da, db in ((0, 0), (8, 8), (-1, 0), (0, -1)):
-                rk_, bk = dm.dot_flat_cuda(a, b, ea + da, eb + db)
-                rp, bp = dm.dot_flat_torch(a, b, ea + da, eb + db)
-                err = frame_err(rk_, bk, rp, bp)
+                err, rk_, bk = dot_window_pass(a, b, ea + da, eb + db)
                 errs["dot_flat_cuda"] = max(errs["dot_flat_cuda"], err)
                 cases += 1
                 flags.append(int(bool(bk)))
@@ -845,9 +902,30 @@ def phase_fast_kernels(xt) -> dict:
                 failures.append(f"B12 n={n}: a zero hid b's uncovered element")
             log(f"B12 n={n} {dist}: flags (anchors +0/+0, +8/+8, -1/+0, "
                 f"+0/-1) {flags}")
-    kernel_resources(DOT_FLAT_RESOURCES)
+    kernel_resources(SUM_FLAT_RESOURCES + DOT_FLAT_RESOURCES)
     for n in FAST_SIZES:
         seed = SEED + 907 + n % 991
+        for nwa in (3, 4, 5):
+            for name, x_np in (
+                    ("bench_lognormal", fast_input(xt, "bench_lognormal", n,
+                                                   seed)),
+                    ("frame ends", window_end_sum(n, nwa, seed + 1))):
+                e = sm.exact_anchor(torch.from_numpy(x_np).cuda())
+                line = [f"B11 n={n} nwa={nwa} {name}:"]
+                for off in B11_OFFSETS:
+                    x = offset_copy(x_np, off)
+                    err, rk_, bk = sum_window_pass(x, e, nwa)
+                    if bool(bk):
+                        err = max(err, 1.0)  # every element is covered
+                    errs["sum_flat_cuda"] = max(errs["sum_flat_cuda"], err)
+                    cases += 1
+                    line.append(f"at {off} {'==' if err == 0 else '!='}")
+                    if err:
+                        failures.append(f"B11 n={n} nwa={nwa} {name} at {off}")
+                if (n <= 65539 and nwa == 5 and frame_value(rk_)
+                        != host_sum_frame(x_np, int(e) + 1 - 160)):
+                    failures.append(f"B11 n={n} {name}: != host sum")
+                log(" ".join(line))
         for name, (a_np, b_np) in (
                 ("bench_lognormal", fast_pair(xt, "bench_lognormal", n, seed)),
                 ("frame edges", frame_edge_pair(n, seed + 2))):
@@ -857,10 +935,8 @@ def phase_fast_kernels(xt) -> dict:
             line = [f"B12 n={n} {name}:"]
             for oa, ob in B4_OFFSETS:
                 a, b = offset_copy(a_np, oa), offset_copy(b_np, ob)
-                rk_, bk = dm.dot_flat_cuda(a, b, ea, eb)
-                err = frame_err(rk_, bk, rp, bp)
-                if not torch.equal(rk_.cpu(), rp.cpu()):
-                    err = max(err, 1.0)
+                err, rk_, bk = dot_window_pass(a, b, ea, eb)
+                err = max(err, frame_err(rk_, bk, rp, bp))
                 errs["dot_flat_cuda"] = max(errs["dot_flat_cuda"], err)
                 cases += 1
                 line.append(f"at ({oa},{ob}) {'==' if err == 0 else '!='}")
@@ -899,9 +975,34 @@ def phase_fast_kernels(xt) -> dict:
         raise AssertionError(f"fast-path kernel != plain version: "
                              f"{failures[:20]}")
     log(f"fast-path kernels vs plain versions: bit-equal (tolerance 0) on "
-        f"{cases} B11/B12 cases and {B3_VECTORS} B3 vectors, half of them "
-        f"full-range int64 ({B3_FRACTION} also against Fraction rounding)")
+        f"{cases} B11/B12 cases (terms, flags, and the fused bits against "
+        f"the plain bits and the two-launch path) and {B3_VECTORS} B3 "
+        f"vectors, half of them full-range int64 ({B3_FRACTION} also "
+        f"against Fraction rounding)")
     return errs
+
+
+# B11: the kernel's registers, spills, shared memory and resident blocks an
+# SM at each window (a spill fails)
+SUM_FLAT_RESOURCES = tuple(
+    ("sum_flat_attrs", (nwa,), f"B11 sum kernel, nwa={nwa}")
+    for nwa in (3, 4, 5))
+# B11's start offsets, in elements past a 256-byte boundary: 0, 8, 16 and
+# 24 bytes, both alignments mod 16 with the pairs split two ways
+B11_OFFSETS = (0, 1, 2, 3)
+
+
+def window_end_sum(n: int, nwa: int, seed: int) -> np.ndarray:
+    """n doubles of full 53-bit significands, each at one end of the
+    window of 32 nwa bits below the anchor 0, chosen at random: the LSB at
+    the frame's bit 0 (sh = 0) or the leading bit at the anchor (sh =
+    32 nwa - 53), signs alternating; x[0] sets the anchor."""
+    rs = np.random.RandomState(seed)
+    m = rs.randint(1 << 52, 1 << 53, n, dtype=np.int64).astype(np.float64)
+    e = np.where(rs.rand(n) < 0.5, -52, 1 - 32 * nwa)
+    x = np.ldexp(m, e) * np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
+    x[0] = 2.0 - 2.0 ** -52
+    return x
 
 
 # B12: the kernel's registers, spills, shared memory and resident blocks
@@ -1006,10 +1107,12 @@ def ladder_breakdown(xt, x_np: np.ndarray, ab_np, smi: str) -> None:
 
 def phase_fast_timing(xt, smi: str) -> dict:
     """CUDA-event times at n = 2^24 on the benchmark data: B11 at each
-    window, B12, B3 (and an empty launch, its bound), their plain versions,
-    the public ladders per distribution against the exact kernels and the
-    native float64 calls, and the ladder against the exact kernel from
-    n = 2^16 to 2^22 on lognormal data."""
+    window and its window pass (one launch, rounded in its last block)
+    beside the two-launch path (B11, then B3), B12 and its window pass
+    likewise, B3 alone (and an empty launch, its bound), their plain
+    versions, the public ladders per distribution against the exact
+    kernels and the native float64 calls, and the ladder against the exact
+    kernel from n = 2^16 to 2^22 on lognormal data."""
     from exblas_tpu_torch.ops.exdot import _exdot_bits_mxu_auto
     from exblas_tpu_torch.ops.exsum import _exsum_bits_mxu_auto
     from exblas_tpu_torch.ops.kernels import dot_kernel as dk
@@ -1029,28 +1132,42 @@ def phase_fast_timing(xt, smi: str) -> dict:
         e = sm.exact_anchor(x)
         t_lib = time_ms(lambda: torch.sum(x))
         for nwa in (3, 4, 5):
+            pos = sm.frame_positions(nwa)
             t_k = time_ms(lambda: sm.sum_flat_cuda(x, e, nwa))
+            t_w = time_ms(lambda: sm.sum_bits_mxu(x, e, nwa, True))
+            t_2 = time_ms(lambda: rk.round_scaled_terms_cuda(
+                sm.sum_flat_cuda(x, e, nwa)[0], pos, e, 1 - 32 * nwa))
             log(f"time n={N_BIG} lognormal B11 sum_flat_cuda nwa={nwa}: "
-                f"{t_k:.4f} ms ({8 * N_BIG / (t_k * 1e-3) / 1e9:.1f} GB/s) "
-                f"[{smi}]")
+                f"{t_k:.4f} ms ({8 * N_BIG / (t_k * 1e-3) / 1e9:.1f} GB/s); "
+                f"window pass sum_bits_mxu (one launch) {t_w:.4f} ms; "
+                f"two-launch path (B11, then B3) {t_2:.4f} ms; torch.sum "
+                f"{t_lib:.4f} ms [{smi}]")
             if nwa == nwa_main:
                 t_p = time_ms(lambda: sm.sum_flat_torch(x, e, nwa), reps=3,
                               inner=1)
                 out["sum_flat_cuda"] = dict(
                     ms=t_k, plain_ms=t_p, bound_ms=8 * N_BIG / HBM_BYTES * 1e3,
                     bound_by="bytes", library_ms=t_lib, shape=[N_BIG],
-                    library="torch.sum", window_bits=32 * nwa)
+                    library="torch.sum", window_bits=32 * nwa,
+                    window_pass_ms=t_w)
         ea, eb = sm.exact_anchor(a), sm.exact_anchor(b)
+        dpos = sm.frame_positions(dm.FRAME_WORDS)
         t_k = time_ms(lambda: dm.dot_flat_cuda(a, b, ea, eb))
+        t_w = time_ms(lambda: dm.dot_bits_mxu(a, b, ea, eb, True))
+        t_2 = time_ms(lambda: rk.round_scaled_terms_cuda(
+            dm.dot_flat_cuda(a, b, ea, eb)[0], dpos, ea + eb,
+            dm.FRAME_OFFSET))
         t_p = time_ms(lambda: dm.dot_flat_torch(a, b, ea, eb), reps=3, inner=1)
         t_lib = time_ms(lambda: torch.dot(a, b))
         out["dot_flat_cuda"] = dict(
             ms=t_k, plain_ms=t_p, bound_ms=16 * N_BIG / HBM_BYTES * 1e3,
             bound_by="bytes", library_ms=t_lib, shape=[N_BIG],
-            library="torch.dot")
+            library="torch.dot", window_pass_ms=t_w)
         log(f"time n={N_BIG} lognormal B12 dot_flat_cuda: {t_k:.4f} ms "
             f"({16 * N_BIG / (t_k * 1e-3) / 1e9:.1f} GB/s), plain {t_p:.3f} ms,"
-            f" torch.dot {t_lib:.4f} ms [{smi}]")
+            f" window pass dot_bits_mxu (one launch) {t_w:.4f} ms, two-launch "
+            f"path (B12, then B3) {t_2:.4f} ms, torch.dot {t_lib:.4f} ms "
+            f"[{smi}]")
         rel, _ = sm.sum_flat_cuda(x, e, nwa_main)
         pos = sm.frame_positions(nwa_main)
         t_k = time_ms(lambda: rk.round_scaled_terms_cuda(

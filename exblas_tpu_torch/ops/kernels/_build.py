@@ -55,6 +55,7 @@ SIGNATURES = {
     "gemv_mxu_round_cuda": (_P, _I, _P, _P, _P, _N, _I, _N, _I, _I, _P, _P),
     "trsv_lower_x_cuda": (_P, _P, _N, _I, _I, _I, _P, _P, _P, _P),
     "sum_flat_cuda": (_P, _N, _P, _I, _P, _P),
+    "sum_flat_attrs": (_I, _P),
     "dot_flat_cuda": (_P, _P, _N, _P, _P, _P, _P),
     "dot_flat_attrs": (_I, _P),
     "round_terms_cuda": (_P, _P, _I, _I, _P, _I, _P, _P),

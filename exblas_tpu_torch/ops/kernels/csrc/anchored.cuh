@@ -1,111 +1,83 @@
-// The anchored-window arithmetic of kernel B11 (sum_mxu.cu): every
-// covered element is an integer Y * 2^sh in a fixed frame of NW 32-bit
-// words, sh >= 0, added to NW word sums.  (B12, dot_mxu.cu, keeps its
-// frame in shared memory instead and uses none of this.)
+// The anchored-window arithmetic of kernel B11 (sum_mxu.cu): a thread's
+// exact sum of the elements that one global window of W = 32 NW bits
+// covers, kept as word sums in shared memory, as B12 (dot_mxu.cu) keeps
+// its frame.
 //
-// A negative term enters as its NW-word two's complement U = 2^(32 NW) - X
-// and counts once towards a negative count c, so that the exact sum is
+// Element v (int64 bits) has the lowest-bit exponent max(expf, 1) - 1075,
+// read from the exponent field alone (gemv_mxu.py:367-377, trailing zeros
+// not read), and sits at sh = that - (E + 1 - W) in the frame whose bit 0
+// has exponent E + 1 - W.  It is covered when it is finite and
+// 0 <= sh <= W - 53.  Only covered elements are added; a nonzero element
+// that is not covered, or a NaN/Inf, sets the flag.  A covered element's
+// significand m shifted by sh mod 32 is three 32-bit words y_0..y_2, which
+// go to frame words q = sh / 32 .. q + 2 (q + 2 <= NW) of the thread's
+// sums of positive or of negative elements: NW + 1 int64 sums a sign,
+// lane-private in shared memory and indexed by the word and the sign, so
+// an element is three 64-bit read-modify-writes whatever NW is, with no
+// two's complement, no negative count and no shifter over the frame.
+// (Measured against a register window over the whole frame and against
+// register sums with the same sign split: scripts/stream_split.py.)
 //
-//   sum_d D_d * 2^(32 d) - c * 2^(32 NW),   D_d = sum of word d of every U,
-//
-// the excess form of exblas_tpu/ops/kernels/gemv_mxu.py _slice_byte_words
-// (there as byte planes and a sign-mask plane for the TPU's int8 matmuls;
-// here as 32-bit words added in integer registers).  Each word is below
-// 2^32, so D_d < n * 2^32: exact in uint64 for any n, and below 2^63 (an
-// int64 on the host) while n <= 2^31.
+// Headroom: a word is below 2^32 and a call adds at most n <= MAX_N_MXU =
+// 2^30 elements, so every sum of one sign's words -- a thread's, a
+// block's, the workspace's -- stays below n * 2^32 <= 2^62.
 #pragma once
-
-#include <cstdint>
 
 namespace exblas {
 
-// The fields of one double (int64 bits) that the window check reads:
-// the 53-bit significand m (0 for NaN/Inf), the exponent of its lowest
-// bit from the exponent field alone, max(expf, 1) - 1075 (as
-// gemv_mxu.py:367-377 has it, trailing zeros not read), and whether the
-// double is NaN or +-Inf.
-__device__ __forceinline__ void decode_anchored(long long b,
-                                                unsigned long long& m,
-                                                int& e_lsb, bool& special) {
-  const int expf = static_cast<int>((b >> 52) & 0x7FF);
-  const unsigned long long frac =
-      static_cast<unsigned long long>(b) & ((1ULL << 52) - 1ULL);
-  special = expf == 0x7FF;
-  m = special ? 0ULL : (expf != 0 ? (frac | (1ULL << 52)) : frac);
-  e_lsb = (expf != 0 ? expf : 1) - 1075;
-}
+template <int NW, int kThreads>
+struct SumFrame {
+  static constexpr int kWords = NW + 1;
+  static constexpr int kMaxSh = 32 * NW - 53;  // the largest covered shift
+  // the shared memory a block's frames take, in int64
+  static constexpr int kShared = 2 * kWords * kThreads;
 
-// word_sums[d] += word d of the NW-word two's complement frame value of
-// (neg ? -1 : 1) * Y * 2^(32 q), Y = sum_j y[j] 2^(32 j) (NY words), and
-// neg_count += neg.  The caller guarantees Y * 2^(32 q) < 2^(32 NW),
-// q < 2^QB, and neg only for Y != 0.  The words are negated over the whole
-// frame and then moved up by q words with a logarithmic shifter: every
-// index is static, so the frame stays in registers.
-template <int NW, int NY, int QB>
-__device__ __forceinline__ void add_to_frame(unsigned long long (&word_sums)[NW],
-                                             unsigned long long& neg_count,
-                                             const unsigned int (&y)[NY],
-                                             int q, bool neg) {
-  unsigned int w[NW];
-  const unsigned int flip = neg ? 0xFFFFFFFFu : 0u;
-  unsigned long long carry = neg ? 1ULL : 0ULL;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    const unsigned long long t =
-        static_cast<unsigned long long>((j < NY ? y[j] : 0u) ^ flip) + carry;
-    w[j] = static_cast<unsigned int>(t);
-    carry = t >> 32;
-  }
-#pragma unroll
-  for (int s = 0; s < QB; ++s) {
-    const bool on = (q >> s) & 1;
-#pragma unroll
-    for (int j = NW - 1; j >= 0; --j) {
-      const unsigned int src = j >= (1 << s) ? w[j - (1 << s)] : 0u;
-      w[j] = on ? src : w[j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NW; ++j) word_sums[j] += w[j];
-  neg_count += neg ? 1ULL : 0ULL;
-}
+  unsigned long long* f;    // word k: f[k kThreads] (+), f[(kWords + k) ..] (-)
+  int c;                    // sh = max(expf, 1) - c
+  unsigned long long bad;   // nonzero: an uncovered nonzero element
+  int exm;                  // the largest exponent field: 0x7FF flags NaN/Inf
 
-// The end of a B11/B12 block: sum each thread's NW word sums and negative
-// count over the block (warp shuffles, then shared memory) and add them to
-// ws[0..NW-1] and, negated, to ws[NW] by one integer atomic each; set
-// ws[NW + 1] to 1 if any thread saw an uncovered element or a special.
-// Integer addition is associative, so the order of the atomics does not
-// matter.
-template <int NW>
-__device__ __forceinline__ void flush_frame(unsigned long long (&word_sums)[NW],
-                                            unsigned long long neg_count,
-                                            bool bad,
-                                            unsigned long long* ws) {
-  __shared__ unsigned long long s_sums[32][NW + 1];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  // anchor: E, the exponent of the window's top bit; frame: the block's
+  // kShared int64 of shared memory.
+  __device__ __forceinline__ void init(int anchor,
+                                       unsigned long long* frame) {
+    f = frame + threadIdx.x;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      word_sums[j] += __shfl_down_sync(0xFFFFFFFFu, word_sums[j], off);
-    }
-    neg_count += __shfl_down_sync(0xFFFFFFFFu, neg_count, off);
+    for (int k = 0; k < 2 * kWords; ++k) f[k * kThreads] = 0ULL;
+    c = anchor + 1075 + 1 - 32 * NW;
+    bad = 0ULL;
+    exm = 0;
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) s_sums[warp][j] = word_sums[j];
-    s_sums[warp][NW] = neg_count;
+
+  __device__ __forceinline__ void add(long long v) {
+    const int ex = static_cast<int>((v >> 52) & 0x7FF);
+    const int sh = (ex > 1 ? ex : 1) - c;
+    const bool in = static_cast<unsigned>(sh) <= kMaxSh && ex != 0x7FF;
+    if (!in) bad |= static_cast<unsigned long long>(v) << 1;
+    exm = max(exm, ex);
+    const unsigned long long m =
+        in ? (static_cast<unsigned long long>(v) & ((1ULL << 52) - 1ULL)) |
+                 (ex != 0 ? 1ULL << 52 : 0ULL)
+           : 0ULL;
+    const int s = in ? sh : 0;
+    const unsigned r = static_cast<unsigned>(s) & 31u;
+    const unsigned m0 = static_cast<unsigned>(m);
+    const unsigned m1 = static_cast<unsigned>(m >> 32);
+    unsigned long long* p = f + ((s >> 5) + (v < 0 ? kWords : 0)) * kThreads;
+    p[0] += m0 << r;
+    p[kThreads] += __funnelshift_l(m0, m1, r);
+    p[2 * kThreads] += __funnelshift_l(m1, 0u, r);
   }
-  const int any_bad = __syncthreads_or(bad ? 1 : 0);
-  const int warps = (blockDim.x + 31) >> 5;
-  if (threadIdx.x <= NW) {
-    unsigned long long t = 0ULL;
-    for (int wi = 0; wi < warps; ++wi) t += s_sums[wi][threadIdx.x];
-    if (threadIdx.x == NW) t = 0ULL - t;  // the count enters negated
-    if (t != 0ULL) atomicAdd(&ws[threadIdx.x], t);
+
+  // This thread's signed sum of word k: positive minus negative.
+  __device__ __forceinline__ long long word(int k) const {
+    return static_cast<long long>(f[k * kThreads] -
+                                  f[(kWords + k) * kThreads]);
   }
-  if (threadIdx.x == 0 && any_bad) atomicOr(&ws[NW + 1], 1ULL);
-}
+
+  __device__ __forceinline__ bool flagged() const {
+    return bad != 0ULL || exm == 0x7FF;
+  }
+};
 
 }  // namespace exblas

@@ -1,24 +1,27 @@
 // Kernel B12 on Hopper: the exact dot product of two vectors, each
-// covered by its own anchored window of 160 bits, plus a flag for any
-// element that its window does not cover.
+// covered by its own anchored window of 160 bits, a flag for any element
+// that its window does not cover, and the dot rounded once.
 //
 // Replaces exblas_tpu/ops/kernels/dot_mxu.py::_run_dot_kernel
-// (_dot_flat_kernel).  The TPU kernel stacked both vectors' byte planes,
-// sign masks and a ones row and formed every cross sum with one int8 MXU
-// matmul per block (7/8 of its output discarded), because its vector unit
-// could not build 106-bit products fast enough.  On Hopper each thread
+// (_dot_flat_kernel) and, after it, the term rounding B3
+// (round_in_kernel.py::round_scaled_terms).  The TPU kernel stacked both
+// vectors' byte planes, sign masks and a ones row and formed every cross
+// sum with one int8 MXU matmul per block (7/8 of its output discarded),
+// because its vector unit could not build 106-bit products fast enough.  On Hopper each thread
 // forms the exact product of two 53-bit significands (four 32-bit
 // multiplies; never TwoProdFMA, whose residual underflows) and adds it,
 // shifted, to a frame of word sums of its own.
 //
 // Side a: significand ma, lowest-bit exponent ea_lsb, shift
-// sha = ea_lsb - (EA + 1 - 160), covered when 0 <= sha <= 107; side b
-// alike.  Each side is checked on its own (dot_mxu.py:138-139 calls
+// sha = ea_lsb - (EA + 1 - 160), covered when finite and 0 <= sha <= 107;
+// side b alike.  Each side is checked on its own (dot_mxu.py:138-139 calls
 // _stack_planes once per side), so a zero a_i does not hide a b_i outside
-// b's window; NaN/Inf set the flag.  A covered product ma * mb < 2^106
-// sits at bit s = sha + shb in [0, 214] of the frame whose bit 0 has
-// exponent EA + EB + 2 - 320 (dot_mxu.py:214-215): five 32-bit words
-// y_0..y_4 of ma * mb << (s % 32), at frame words s / 32 + j <= 10.
+// b's window; NaN/Inf set the flag.  Only pairs covered on both sides are
+// added, so the terms are the exact dot of those pairs, flag or not.  A
+// covered product ma * mb < 2^106 sits at bit s = sha + shb in [0, 214]
+// of the frame whose bit 0 has exponent EA + EB + 2 - 320
+// (dot_mxu.py:214-215): five 32-bit words y_0..y_4 of ma * mb << (s % 32),
+// at frame words s / 32 + j <= 10.
 //
 // Bound on the H100: 16 bytes read per pair, 0.08 ms at 2^24 pairs, about
 // 140 cycles a warp-wide pair on each of an SM's four schedulers.  The
@@ -38,8 +41,12 @@
 //     global workspace by one int64 atomic a word; the last block to
 //     arrive (a ticket) carries the 11 sums into canonical terms: term k
 //     in [0, 2^32) at bit 32 k for k < 10, term 10 = the value >> 320
-//     (signed).  The terms are the exact value's digits, so they do not
-//     depend on the grid, the load width or the order of the atomics.
+//     (signed), and rounds them once on one thread, its limbs in the
+//     frame's shared memory (round.cuh finish_frame, B3's device code) at
+//     e = EA + EB + 2 - 320, read on the device: a window pass is one
+//     launch after the workspace's zeroing.  The terms are the exact
+//     value's digits, so neither they nor the bits depend on the grid, the
+//     load width or the order of the atomics.
 // Headroom: a word is below 2^32 and n <= 2^31 (MAX_N_DOT_MXU), so every
 // sum of one sign's words stays below 2^63; the value is below
 // 2^(320 + 31), so term 10 is an int32.
@@ -47,6 +54,7 @@
 
 #include <cstdint>
 
+#include "round.cuh"
 #include "stream.cuh"
 #include "warpacc.cuh"
 
@@ -59,7 +67,8 @@ constexpr int kNW = 10;      // 32-bit words of the 320-bit frame
 constexpr int kWin = 160;    // each side's window
 constexpr int kMaxSh = kWin - 53;   // the largest covered shift
 constexpr int kSlots = kNW + 1;     // a sign's word sums, term 10 included
-constexpr int kWs = kNW + 2;        // the terms and the flag; then the ticket
+constexpr int kFlag = kSlots;       // ws: the terms, the flag, the bits,
+constexpr int kTicket = kSlots + 2;  // the ticket
 constexpr unsigned long long kFrac = (1ULL << 52) - 1ULL;
 
 // One thread's pairs: the word sums at frame[k * kThreads] (positive
@@ -75,8 +84,8 @@ struct PairFrame {
     const int exb = static_cast<int>((b >> 52) & 0x7FF);
     const int sha = (exa > 1 ? exa : 1) - ca;
     const int shb = (exb > 1 ? exb : 1) - cb;
-    const bool in_a = static_cast<unsigned>(sha) <= kMaxSh;
-    const bool in_b = static_cast<unsigned>(shb) <= kMaxSh;
+    const bool in_a = static_cast<unsigned>(sha) <= kMaxSh && exa != 0x7FF;
+    const bool in_b = static_cast<unsigned>(shb) <= kMaxSh && exb != 0x7FF;
     if (!in_a) bad |= static_cast<unsigned long long>(a) << 1;
     if (!in_b) bad |= static_cast<unsigned long long>(b) << 1;
     exm = max(exm, max(exa, exb));
@@ -178,29 +187,24 @@ __global__ void __launch_bounds__(kThreads, 3)
     }
   }
   if (threadIdx.x == 0 && any_bad) {
-    atomicOr(reinterpret_cast<unsigned long long*>(ws + kNW + 1), 1ULL);
+    atomicOr(reinterpret_cast<unsigned long long*>(ws + kFlag), 1ULL);
   }
   __threadfence();  // this block's sums are in ws before its ticket
   __syncthreads();
   if (threadIdx.x == 0) {
-    s_last = atomicAdd(reinterpret_cast<unsigned*>(ws + kWs), 1u) ==
+    s_last = atomicAdd(reinterpret_cast<unsigned*>(ws + kTicket), 1u) ==
              gridDim.x - 1;
   }
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  // canonical terms: the sums read at once, then one carry pass
+  // the sums read at once, then one thread's carry pass and rounding
   if (threadIdx.x < kSlots) s_part[0][threadIdx.x] = __ldcg(ws + threadIdx.x);
   __syncthreads();
   if (threadIdx.x != 0) return;
-  long long carry = 0;
-#pragma unroll
-  for (int k = 0; k < kNW; ++k) {
-    const long long t = s_part[0][k] + carry;
-    ws[k] = t & 0xFFFFFFFFLL;
-    carry = t >> 32;
-  }
-  ws[kNW] = s_part[0][kNW] + carry;
+  exblas::finish_frame<kSlots>(s_part[0],
+                               reinterpret_cast<long long*>(s_frame),
+                               *ea + *eb + 2 - 2 * kWin, ws);
 }
 
 template <int W>
@@ -223,9 +227,10 @@ int launch_w(const long long* a, const long long* b, long long n, int head,
 extern "C" {
 
 // a, b: n float64 values each (read as int64 bits, 8-byte aligned); ea,
-// eb: one int32 each on the device; ws: 13 int64, zeroed by the caller.
+// eb: one int32 each on the device; ws: 14 int64, zeroed by the caller.
 // Writes the canonical terms T_0..T_10 (term k at frame bit 32 k) to
-// ws[0..10] and the flag to ws[11]; ws[12] is the ticket.
+// ws[0..10], the flag to ws[11] and the bits of the dot rounded once to
+// ws[12]; ws[13] is the ticket.
 int dot_flat_cuda(const void* a, const void* b, long long n, const void* ea,
                   const void* eb, void* ws, void* stream) {
   const auto pa = static_cast<const long long*>(a);

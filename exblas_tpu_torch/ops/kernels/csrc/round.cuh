@@ -139,9 +139,11 @@ __device__ __forceinline__ void add_scaled(long long* limbs, long long v,
 // pos[t] >= 0.  Each term's 32-bit halves go through add_scaled into nl
 // zeroed limbs (nl > (max pos + 72) / 20 + 1 holds 128 terms of 2^63 and
 // the sign), then round_limbs rounds them once (an exact zero is +0.0).
+// `pos` is anything indexable: B3's int array, or FramePos for the last
+// blocks of the window kernels B11 and B12, which run this same rounding.
+template <typename Pos>
 __device__ __forceinline__ unsigned long long round_scaled_terms(
-    const long long* vals, const int* pos, int t, long long* limbs, int nl,
-    int e) {
+    const long long* vals, Pos pos, int t, long long* limbs, int nl, int e) {
   for (int l = 0; l < nl; ++l) limbs[l] = 0;
   for (int i = 0; i < t; ++i) {
     const long long v = vals[i];
@@ -149,6 +151,44 @@ __device__ __forceinline__ unsigned long long round_scaled_terms(
     add_scaled(limbs, v >> 32, pos[i] + 32);       // |v >> 32| <= 2^31
   }
   return round_limbs(limbs, 0, nl - 1, nl, -e);
+}
+
+// The positions of an anchored window's terms: term k at bit 32 k.
+struct FramePos {
+  __device__ __forceinline__ int operator[](int k) const { return 32 * k; }
+};
+
+// Limbs round_scaled_terms needs for t terms at FramePos
+// (term_limbs_count in round_in_kernel.py: (max pos + 72) / 20 + 2).
+__host__ __device__ constexpr int frame_limbs(int t) {
+  return (32 * (t - 1) + 72) / kLimbBits + 2;
+}
+
+// The end of the anchored window kernels B11 and B12, run by one thread
+// of the last block: carries T sums (sum k at frame bit 32 k, each at
+// most 2^63 - 2^31 in magnitude, so that a carry below 2^31 cannot
+// overflow) in place into canonical terms -- terms 0..T-2 in
+// [0, 2^32), the last the value >> 32 (T - 1), floor -- and writes them to
+// out[0..T-1] and the value rounded once, frame bit 0 at 2^e, to out[T +
+// 1] (out[T] is the caller's flag).  limbs: frame_limbs(T) int64 of
+// scratch.  The canonical terms are the exact value's digits, so neither
+// they nor the bits depend on how the grid split the sums.
+template <int T>
+__device__ __forceinline__ void finish_frame(long long* terms,
+                                             long long* limbs, int e,
+                                             long long* out) {
+  long long carry = 0;
+#pragma unroll
+  for (int k = 0; k < T - 1; ++k) {
+    const long long t = terms[k] + carry;
+    terms[k] = t & 0xFFFFFFFFLL;
+    carry = t >> 32;
+    out[k] = terms[k];
+  }
+  terms[T - 1] += carry;
+  out[T - 1] = terms[T - 1];
+  out[T + 1] = static_cast<long long>(
+      round_scaled_terms(terms, FramePos{}, T, limbs, frame_limbs(T), e));
 }
 
 __device__ __forceinline__ unsigned long long apply_specials(

@@ -7,7 +7,11 @@
 // a float32 selection matmul (its vector unit has no cheap cross-lane
 // integer sum); here one thread adds the terms into int64 limbs in local
 // memory and rounds them (round.cuh round_scaled_terms, built on the
-// add_scaled/round_limbs that B6's and B9's rounding kernels use).
+// add_scaled/round_limbs that B6's and B9's rounding kernels use).  On the
+// card the anchored paths run that same rounding in the last blocks of
+// their window kernels B11 and B12 (round.cuh finish_frame), so this
+// kernel is off their main path: it is the TPU kernel's counterpart and
+// the test bed of the device rounding.
 //
 // Bound on the H100: the work is a few hundred integer operations, so the
 // launch itself is the cost (a few microseconds); chip_smoke.py takes the

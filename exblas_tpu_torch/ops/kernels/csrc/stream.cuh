@@ -1,5 +1,5 @@
 // The streaming shape shared by the persistent ExSUM/ExDOT kernels (B2,
-// B4, B12): a grid of as many blocks as every SM holds at once, each
+// B4, B11, B12): a grid of as many blocks as every SM holds at once, each
 // thread reading its vectors in 16-byte loads (8-byte loads where two
 // vectors start at different offsets mod 16), the next step's loads issued
 // before the current step is decoded.
@@ -44,6 +44,39 @@ struct PairUnit<1> {
   __device__ __forceinline__ long long av(int) const { return a; }
   __device__ __forceinline__ long long bv(int) const { return b; }
 };
+
+// One vector's loop, as B2's (sum_kernel.cu): nu 16-byte units from px,
+// kUnits a thread a step (unit s * per_step + u * threads + tid), the next
+// step's loads issued before body(cur, s) takes the current step's; past
+// nu a unit is zeros.  The step count is the same in every thread of the
+// grid, so the body may hold warp-wide operations.  Index: the type of
+// the unit indices, int where the caller's n bounds them (B11's n <=
+// 2^30), which spares registers and 64-bit arithmetic.
+template <int kUnits, typename Index, typename Body>
+__device__ __forceinline__ void stream_units(const longlong2* px, Index nu,
+                                             Index threads, Index tid,
+                                             Body&& body) {
+  const Index per_step = kUnits * threads;
+  const Index steps = (nu + per_step - 1) / per_step;  // grid-uniform
+  longlong2 cur[kUnits];
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    const Index i = u * threads + tid;
+    cur[u] = i < nu ? __ldcs(px + i) : make_longlong2(0LL, 0LL);
+  }
+#pragma unroll 1
+  for (Index s = 0; s < steps; ++s) {
+    longlong2 nxt[kUnits];
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      const Index i = (s + 1) * per_step + u * threads + tid;
+      nxt[u] = i < nu ? __ldcs(px + i) : make_longlong2(0LL, 0LL);
+    }
+    body(cur, s);
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) cur[u] = nxt[u];
+  }
+}
 
 // Blocks of a persistent launch of `fn` (threads a block): `want` (the
 // blocks the work fills, at least 1), but no more than every SM holds at

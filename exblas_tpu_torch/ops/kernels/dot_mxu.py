@@ -14,10 +14,14 @@ Counterpart of ``exblas_tpu/ops/kernels/dot_mxu.py``:
   term 10 the sum shifted right by 320 bits (signed), so the terms do not
   depend on how the kernel split its work.  ``bad`` is set when a nonzero
   element of either vector leaves its window (each side checked on its
-  own) or any element is NaN/Inf; the terms are then meaningless.
+  own) or any element is NaN/Inf; the caller then discards the result.
+  Only pairs covered on both sides are summed, so the terms are the same
+  in the kernel and the plain version whatever the flag.
   :func:`dot_flat_torch` is its plain version and returns the same terms;
 * :func:`dot_bits_mxu` / :func:`dot_acc_limbs_mxu`: the terms rounded
-  once by kernel B3, or shifted into absolute DOT_FORMAT limbs.
+  once (by the kernel's last block with B3's device code, so a window
+  pass is one launch; on the plain path by B3's plain version), or
+  shifted into absolute DOT_FORMAT limbs.
 
 The TPU kernel's stacked byte planes, sign masks, ones row and the
 cross-plane matmul whose 7/8 of output it discarded served its vector
@@ -32,11 +36,10 @@ from ...core.rounding import rel_limbs_to_abs_limbs
 from ...core.types import DOT_FORMAT
 from . import _build
 from ._build import check_cuda_f64, ptr, stream_of
-from .round_in_kernel import (round_scaled_terms_cuda,
-                              round_scaled_terms_torch, term_limbs_count,
+from .round_in_kernel import (round_scaled_terms_torch, term_limbs_count,
                               terms_to_limbs)
-from .sum_mxu import (_CHUNK, _M32, _bits, _check_anchor, _decode,
-                      _shifted_words, frame_positions)
+from .sum_mxu import (_CHUNK, _bits, _check_anchor, _decode, _shifted_words,
+                      canonical_terms, frame_positions, ws_flag)
 
 __all__ = ["dot_flat_cuda", "dot_flat_torch", "pair_words",
            "signed_word_sums", "canonical_terms", "dot_bits_mxu",
@@ -61,26 +64,32 @@ def _check_pair(a, b, name: str) -> int:
     return a.numel()
 
 
-def dot_flat_cuda(a: torch.Tensor, b: torch.Tensor, ea: torch.Tensor,
-                  eb: torch.Tensor):
-    """Kernel B12 on two contiguous CUDA float64 tensors of one shape,
-    n <= MAX_N_DOT_MXU, at 0-dim int32 anchors on the same device:
-    (rel int64 (11,), bad 0-dim bool), both on the device (see the module
-    doc)."""
+def _dot_flat_ws(a: torch.Tensor, b: torch.Tensor, ea: torch.Tensor,
+                 eb: torch.Tensor):
+    """One launch of kernel B12; its workspace (14 int64): the terms, the
+    flag, the bits of the rounded dot, and the ticket that tells the last
+    block to carry and round the terms."""
     n = _check_pair(a, b, "dot_flat_cuda")
     _check_anchor(ea, a.device, "dot_flat_cuda")
     _check_anchor(eb, a.device, "dot_flat_cuda")
-    # the terms, the flag and the ticket that tells the last block to
-    # carry the terms into their canonical digits
-    ws = torch.zeros(FRAME_WORDS + 3, dtype=torch.int64, device=a.device)
+    ws = torch.zeros(FRAME_WORDS + 4, dtype=torch.int64, device=a.device)
     with torch.cuda.device(a.device):
         err = _build.library().dot_flat_cuda(
             ptr(a), ptr(b), n, ptr(ea), ptr(eb), ptr(ws),
             stream_of(a.device))
     _build.check(err, "dot_flat_cuda")
     dot_flat_cuda.launches += 1
-    # the flag is 0 or 1 in the low byte of the last int64 (little-endian)
-    return ws[:FRAME_WORDS + 1], ws.view(torch.bool)[8 * (FRAME_WORDS + 1)]
+    return ws
+
+
+def dot_flat_cuda(a: torch.Tensor, b: torch.Tensor, ea: torch.Tensor,
+                  eb: torch.Tensor):
+    """Kernel B12 on two contiguous CUDA float64 tensors of one shape,
+    n <= MAX_N_DOT_MXU, at 0-dim int32 anchors on the same device:
+    (rel int64 (11,), bad 0-dim bool), both on the device (see the module
+    doc)."""
+    ws = _dot_flat_ws(a, b, ea, eb)
+    return ws[:FRAME_WORDS + 1], ws_flag(ws, FRAME_WORDS + 1)
 
 
 dot_flat_cuda.launches = 0
@@ -139,19 +148,6 @@ def dot_flat_torch(a: torch.Tensor, b: torch.Tensor, ea, eb):
     return canonical_terms(rel), bad
 
 
-def canonical_terms(rel: torch.Tensor) -> torch.Tensor:
-    """The canonical form of frame terms (term k at bit 32 k) of the same
-    value: one carry pass, terms 0..9 in [0, 2^32) and the last term the
-    value >> 320 (floor), as kernel B12's last block writes them."""
-    out, carry = [], torch.zeros((), dtype=torch.int64, device=rel.device)
-    for k in range(FRAME_WORDS):
-        t = rel[k] + carry
-        out.append(t & _M32)
-        carry = t >> 32
-    out.append(rel[FRAME_WORDS] + carry)
-    return torch.stack(out)
-
-
 def _e_frame(ea, eb) -> torch.Tensor:
     return ea + eb      # int32: anchors lie within [-1023, 1032]
 
@@ -159,16 +155,15 @@ def _e_frame(ea, eb) -> torch.Tensor:
 def dot_bits_mxu(a: torch.Tensor, b: torch.Tensor, ea: torch.Tensor,
                  eb: torch.Tensor, kernels: bool):
     """Correctly rounded exact dot of the pairs covered at (ea, eb): (bits
-    0-dim int64, bad 0-dim bool) on the device; the bits are meaningless
-    when ``bad`` is set.  B12 then B3, or their plain versions."""
-    pos = frame_positions(FRAME_WORDS)
+    0-dim int64, bad 0-dim bool) on the device; the caller discards the
+    bits when ``bad`` is set.  One launch of B12, which rounds in its last
+    block, or the plain B12 and B3."""
     if kernels:
-        rel, bad = dot_flat_cuda(a, b, ea, eb)
-        return round_scaled_terms_cuda(rel, pos, _e_frame(ea, eb),
-                                       FRAME_OFFSET), bad
+        ws = _dot_flat_ws(a, b, ea, eb)
+        return ws[FRAME_WORDS + 2], ws_flag(ws, FRAME_WORDS + 1)
     rel, bad = dot_flat_torch(a, b, ea, eb)
-    return round_scaled_terms_torch(rel, pos, _e_frame(ea, eb),
-                                    FRAME_OFFSET), bad
+    return round_scaled_terms_torch(rel, frame_positions(FRAME_WORDS),
+                                    _e_frame(ea, eb), FRAME_OFFSET), bad
 
 
 def dot_acc_limbs_mxu(a: torch.Tensor, b: torch.Tensor, ea: torch.Tensor,

@@ -7,13 +7,16 @@ Counterpart of ``exblas_tpu/ops/kernels/round_in_kernel.py``
     V = sum_t vals[t] * 2^(bits_pos[t] + e_adjust)
 
 rounded once to binary64 (nearest even, subnormals, overflow to +-Inf, +0
-for an exact zero).  The anchored sum and dot paths (``sum_mxu.py``,
-``dot_mxu.py``) end in it.  The TPU kernel spread the terms over 128 lanes
-and folded them through a float32 matmul because its vector unit has no
-cheap cross-lane integer sum; on Hopper one thread adds each term's two
-32-bit halves into int64 limbs (``round.cuh`` ``add_scaled``, shared with
-B6's and B9's rounding kernels) and rounds them (``round_limbs``).  The
-launch is the cost: a few microseconds for at most 128 terms.
+for an exact zero).  The TPU kernel spread the terms over 128 lanes and
+folded them through a float32 matmul because its vector unit has no cheap
+cross-lane integer sum; on Hopper one thread adds each term's two 32-bit
+halves into int64 limbs (``round.cuh`` ``add_scaled``, shared with B6's
+and B9's rounding kernels) and rounds them (``round_limbs``).  The
+anchored sum and dot paths end in this rounding, but on the card it runs
+inside the last blocks of their window kernels B11 and B12 (``round.cuh``
+``finish_frame``), so :func:`round_scaled_terms_cuda` is off their main
+path: it is the counterpart of the TPU kernel and the test bed of that
+device code.  The plain paths end in :func:`round_scaled_terms_torch`.
 
 ``bits_pos`` is static (a tuple of ints) and passed by value; ``e_adjust``
 is a 0-dim int32 tensor on the device, since the anchored paths compute
@@ -25,6 +28,7 @@ here take any int64 (each term is split into two 32-bit halves).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -77,6 +81,12 @@ def terms_to_limbs(vals: torch.Tensor, bits_pos, n_limbs: int):
     return limbs.index_add_(0, idx, pieces)
 
 
+@functools.lru_cache(maxsize=256)
+def _c_positions(bits_pos: tuple):
+    """The positions as the C entry's int array, built once a tuple."""
+    return (ctypes.c_int * len(bits_pos))(*bits_pos)
+
+
 def round_scaled_terms_torch(vals: torch.Tensor, bits_pos, e_adjust,
                              e_offset: int = 0) -> torch.Tensor:
     """Plain version of :func:`round_scaled_terms_cuda` on any device;
@@ -113,7 +123,7 @@ def round_scaled_terms_cuda(vals: torch.Tensor, bits_pos, e_adjust,
         raise ValueError(f"round_scaled_terms_cuda: positions up to "
                          f"{max(bits_pos)} need {n_limbs} limbs, more than "
                          f"{MAX_TERM_LIMBS}")
-    pos = (ctypes.c_int * t)(*bits_pos)
+    pos = _c_positions(bits_pos)
     bits = torch.empty((), dtype=torch.int64, device=vals.device)
     with torch.cuda.device(vals.device):
         err = _build.library().round_terms_cuda(

@@ -11,20 +11,23 @@ Counterpart of ``exblas_tpu/ops/kernels/sum_mxu.py``:
   so the first three return ints (one read of two reduced values each),
   and only ``exact_anchor``, on the retry path, stays on the device;
 * :func:`sum_flat_cuda` <- ``_sum_epilogue_terms`` (``_sum_flat_kernel``):
-  every element is shifted into ONE global window of W = 32 * nwa bits
-  below the anchor E + 1, and the window words are summed exactly.  The
-  result ``rel`` is nwa + 1 int64 terms, term k at relative bit 32 k of
-  the frame whose bit 0 has exponent E + 1 - W: the word sums D_0..D_{nwa-1}
-  and, last, minus the count of negative elements (their words are W-bit
-  two's complements, ``csrc/anchored.cuh``).  ``bad`` is set when a
-  nonzero element's bits [e_lsb, e_lsb + 52] (e_lsb from the exponent
-  field alone) leave [E + 1 - W, E], or any element is NaN/Inf; the caller
-  then discards ``rel``.  :func:`sum_flat_torch` is its plain version and
-  returns the same terms;
+  every finite element whose bits [e_lsb, e_lsb + 52] (e_lsb from the
+  exponent field alone) lie in ONE global window of W = 32 * nwa bits
+  below the anchor E + 1 is summed exactly.  The result ``rel`` is
+  nwa + 1 int64 terms, term k at relative bit 32 k of the frame whose
+  bit 0 has exponent E + 1 - W: the canonical digits of the exact sum,
+  terms 0..nwa-1 in [0, 2^32) and term nwa the sum shifted right by W
+  bits (floor), so they do not depend on how the kernel split its work.
+  ``bad`` is set when a nonzero element is not covered, or any element is
+  NaN/Inf; the caller then discards the result.  :func:`sum_flat_torch`
+  is its plain version and returns the same terms;
 * :func:`sum_bits_mxu` / :func:`sum_acc_limbs_mxu`: the terms rounded
-  once by kernel B3 (``round_in_kernel.py``), or shifted into absolute
-  SUM_FORMAT limbs (``core.rounding.rel_limbs_to_abs_limbs``).  ``kernels``
-  picks the CUDA kernels or the plain versions, as ``gemm_mxu.py`` does.
+  once, or shifted into absolute SUM_FORMAT limbs
+  (``core.rounding.rel_limbs_to_abs_limbs``).  The kernel rounds them in
+  its last block with B3's device code, so a window pass is one launch;
+  the plain path rounds them with B3's plain version
+  (``round_in_kernel.py``).  ``kernels`` picks the CUDA kernel or the
+  plain versions, as ``gemm_mxu.py`` does.
 
 The TPU kernel's byte planes, excess-128 compensation and int8 matmul
 served its vector unit; the window, its coverage rule and the exact sum
@@ -40,13 +43,13 @@ from ...core.rounding import rel_limbs_to_abs_limbs
 from ...core.types import SUM_FORMAT
 from . import _build
 from ._build import check_cuda_f64, ptr, stream_of
-from .round_in_kernel import (round_scaled_terms_cuda,
-                              round_scaled_terms_torch, term_limbs_count,
+from .round_in_kernel import (round_scaled_terms_torch, term_limbs_count,
                               terms_to_limbs)
 
 __all__ = ["sample_anchor", "full_anchor", "resolve_anchor", "exact_anchor",
-           "device_anchor", "sum_flat_cuda", "sum_flat_torch", "sum_bits_mxu",
-           "sum_acc_limbs_mxu", "MAX_N_MXU", "NWA_TIERS"]
+           "device_anchor", "sum_flat_cuda", "sum_flat_torch",
+           "canonical_terms", "sum_bits_mxu", "sum_acc_limbs_mxu",
+           "MAX_N_MXU", "NWA_TIERS"]
 
 # The JAX package's bound (int32 plane sums there; int64 word sums here
 # hold n <= 2^31), kept so that both packages route alike.
@@ -164,24 +167,36 @@ def _check_anchor(anchor, device: torch.device, name: str) -> None:
                          f"tensor on {device}")
 
 
-def sum_flat_cuda(x: torch.Tensor, anchor: torch.Tensor, nwa: int):
-    """Kernel B11 on a contiguous CUDA float64 tensor, n <= MAX_N_MXU, at
-    a 0-dim int32 anchor on the same device: (rel int64 (nwa + 1,), bad
-    0-dim bool), both on the device (see the module doc)."""
+def _sum_flat_ws(x: torch.Tensor, anchor: torch.Tensor, nwa: int):
+    """One launch of kernel B11; its workspace (nwa + 4 int64): the terms,
+    the flag, the bits of the rounded sum, the ticket."""
     check_cuda_f64(x, "sum_flat_cuda")
     _check_nwa(nwa, "sum_flat_cuda")
     n = x.numel()
     if n > MAX_N_MXU:
         raise ValueError(f"sum_flat_cuda: n = {n} > MAX_N_MXU")
     _check_anchor(anchor, x.device, "sum_flat_cuda")
-    ws = torch.zeros(nwa + 2, dtype=torch.int64, device=x.device)
+    ws = torch.zeros(nwa + 4, dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().sum_flat_cuda(
             ptr(x), n, ptr(anchor), nwa, ptr(ws), stream_of(x.device))
     _build.check(err, "sum_flat_cuda")
     sum_flat_cuda.launches += 1
-    # the flag is 0 or 1 in the low byte of the last int64 (little-endian)
-    return ws[:nwa + 1], ws.view(torch.bool)[8 * (nwa + 1)]
+    return ws
+
+
+def ws_flag(ws: torch.Tensor, k: int) -> torch.Tensor:
+    """The flag at ws[k], 0 or 1 in the low byte of an int64
+    (little-endian), as a 0-dim bool view."""
+    return ws.view(torch.bool)[8 * k]
+
+
+def sum_flat_cuda(x: torch.Tensor, anchor: torch.Tensor, nwa: int):
+    """Kernel B11 on a contiguous CUDA float64 tensor, n <= MAX_N_MXU, at
+    a 0-dim int32 anchor on the same device: (rel int64 (nwa + 1,), bad
+    0-dim bool), both on the device (see the module doc)."""
+    ws = _sum_flat_ws(x, anchor, nwa)
+    return ws[:nwa + 1], ws_flag(ws, nwa + 1)
 
 
 sum_flat_cuda.launches = 0
@@ -233,9 +248,25 @@ def _decode(bits, e_base, w: int):
     return m, sh, nz & inside, special | (nz & ~inside)
 
 
+def canonical_terms(rel: torch.Tensor) -> torch.Tensor:
+    """The canonical form of frame terms (term k at bit 32 k) of the same
+    value: one carry pass, every term but the last in [0, 2^32) and the
+    last the value >> 32 (len - 1) (floor), as the last blocks of kernels
+    B11 and B12 write them (``round.cuh`` ``finish_frame``)."""
+    out, carry = [], torch.zeros((), dtype=torch.int64, device=rel.device)
+    for k in range(rel.numel() - 1):
+        t = rel[k] + carry
+        out.append(t & _M32)
+        carry = t >> 32
+    out.append(rel[-1] + carry)
+    return torch.stack(out)
+
+
 def sum_flat_torch(x: torch.Tensor, anchor, nwa: int):
     """Plain version of :func:`sum_flat_cuda` on any device: the same
-    terms and flag (``anchor`` an int or a one-element tensor)."""
+    terms and flag (``anchor`` an int or a one-element tensor).  The sum
+    is formed as W-bit two's-complement word sums and minus the negative
+    count (:func:`_frame_terms`) and carried into canonical terms."""
     _check_nwa(nwa, "sum_flat_torch")
     bits = _bits(x)
     w = 32 * nwa
@@ -252,7 +283,7 @@ def sum_flat_torch(x: torch.Tensor, anchor, nwa: int):
                                sh & 31, 3)
         rel += _frame_terms(words, sh >> 5, add & (b < 0), nwa)
         bad |= bad_c.any()
-    return rel, bad
+    return canonical_terms(rel), bad
 
 
 # ---------------------------------------------------------------------------
@@ -267,13 +298,12 @@ def frame_positions(nw: int) -> tuple:
 def sum_bits_mxu(x: torch.Tensor, anchor: torch.Tensor, nwa: int,
                  kernels: bool):
     """Correctly rounded exact sum of the elements covered at ``anchor``:
-    (bits 0-dim int64, bad 0-dim bool), both on the device; the bits are
-    meaningless when ``bad`` is set.  B11 then B3, or their plain
-    versions."""
+    (bits 0-dim int64, bad 0-dim bool), both on the device; the caller
+    discards the bits when ``bad`` is set.  One launch of B11, which
+    rounds in its last block, or the plain B11 and B3."""
     if kernels:
-        rel, bad = sum_flat_cuda(x, anchor, nwa)
-        return round_scaled_terms_cuda(rel, frame_positions(nwa), anchor,
-                                       1 - 32 * nwa), bad
+        ws = _sum_flat_ws(x, anchor, nwa)
+        return ws[nwa + 2], ws_flag(ws, nwa + 1)
     rel, bad = sum_flat_torch(x, anchor, nwa)
     return round_scaled_terms_torch(rel, frame_positions(nwa), anchor,
                                     1 - 32 * nwa), bad

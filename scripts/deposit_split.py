@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -131,7 +132,8 @@ def build(csrc: Path, src: str, tag: str, probes: str, sigs: dict,
     texts to replace in it; an edited header's copy sits beside the
     source's, where its ``#include`` finds it first."""
     d = OUT / tag
-    d.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(d, ignore_errors=True)  # no edited header of another tree
+    d.mkdir(parents=True)
     files = {f"{src}.cu": (csrc / f"{src}.cu").read_text()}
     for name, reps in (edits or {}).items():
         text = files.get(name, None) or (csrc / name).read_text()

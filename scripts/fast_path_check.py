@@ -10,7 +10,9 @@ It prints each fast-path source's register, shared-memory and spill
 figures (``nvcc -Xptxas -v``), builds the kernels, holds B11
 (``sum_flat_cuda``, windows of 96, 128 and 160 bits) and B12
 (``dot_flat_cuda``) against their plain versions at n = 2^24 on lognormal
-data at the exact anchor, 8 bits above it and one bit below it, and B3
+data at the exact anchor, 8 bits above it and one bit below it (terms,
+flags, and the bits of their one-launch window passes against the plain
+bits and the two-launch path, as ``chip_smoke.py`` does), and B3
 (``round_scaled_terms_cuda``) on 300 random term vectors, checks the
 public ladders against the exact kernels, and times the kernels, the
 exact kernels, the public calls and the float64 controls with CUDA
@@ -30,6 +32,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import chip_smoke as cs  # noqa: E402
 import exblas_tpu_torch as xt  # noqa: E402
 from exblas_tpu_torch.ops.exdot import _exdot_bits_mxu_auto  # noqa: E402
 from exblas_tpu_torch.ops.exsum import _exsum_bits_mxu_auto  # noqa: E402
@@ -81,20 +84,14 @@ def main() -> None:
     e = sm.exact_anchor(x)
     for nwa in (3, 4, 5):
         for de in (0, 8, -1):
-            rel_k, bad_k = sm.sum_flat_cuda(x, e + de, nwa)
-            rel_p, bad_p = sm.sum_flat_torch(x, e + de, nwa)
-            same = bool(bad_k) == bool(bad_p) and (
-                bool(bad_k) or torch.equal(rel_k.cpu(), rel_p.cpu()))
-            print("B11", nwa, de, bool(bad_k), same, flush=True)
-            assert same
+            err, _, bad = cs.sum_window_pass(x, e + de, nwa)
+            print("B11", nwa, de, bool(bad), err == 0, flush=True)
+            assert err == 0
     ea, eb = sm.exact_anchor(a), sm.exact_anchor(b)
     for da, db in ((0, 0), (8, 8), (-1, 0)):
-        rel_k, bad_k = dm.dot_flat_cuda(a, b, ea + da, eb + db)
-        rel_p, bad_p = dm.dot_flat_torch(a, b, ea + da, eb + db)
-        same = bool(bad_k) == bool(bad_p) and (
-            bool(bad_k) or torch.equal(rel_k.cpu(), rel_p.cpu()))
-        print("B12", da, db, bool(bad_k), same, flush=True)
-        assert same
+        err, _, bad = cs.dot_window_pass(a, b, ea + da, eb + db)
+        print("B12", da, db, bool(bad), err == 0, flush=True)
+        assert err == 0
     rs = np.random.RandomState(0)
     for _ in range(300):
         t = int(rs.randint(1, 129))

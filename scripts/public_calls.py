@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Times the public calls that run on the exact dot and row kernels B4 and
-B7, for this checkout and others, in turns on one GPU.
+"""Times public calls for this checkout and others, in turns on one GPU:
+those that run on the exact dot and row kernels B4 and B7 (``--set
+exact``, the default), or the anchored-window ladders (``--set
+ladders``).
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 and the CUDA toolkit:
 
-    python3 scripts/public_calls.py [--tree DIR]
+    python3 scripts/public_calls.py [--tree DIR] [--set exact|ladders]
 
 With ``--tree DIR`` (the root of another checkout, for example an older
 commit unpacked with ``git archive``) it times that tree and this one in
@@ -21,6 +23,10 @@ timed with CUDA events on data made with numpy from fixed seeds (the
 * ``exgemv_bits`` at 8192^2, beta = 0, on a 600-binade A (no GEMV rung
   covers it: B7), and its parts alone: ``plan_gemv``, B7 and
   ``round_rows``.
+
+With ``--set ladders``: ``exsum_bits`` and ``exdot_bits`` at n = 2^24 on
+each distribution of ``chip_smoke.py``'s BLAS-1 benchmark data (the
+ladders' window passes: B11 and B12; wide300 takes the exact tier).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
-def child(tree: Path) -> None:
+def child(tree: Path, which: str) -> None:
     sys.path.insert(0, str(tree))
     import torch
 
@@ -59,6 +65,19 @@ def child(tree: Path) -> None:
         return statistics.median(out)
 
     res = {}
+    if which == "ladders":
+        sys.path.insert(0, str(HERE))
+        import chip_smoke as cs
+
+        n = cs.N_BIG
+        for name, x in cs.bench_sum_data(xt, n).items():
+            x = torch.from_numpy(x).cuda()
+            res[f"exsum_bits n=2^24 {name}"] = ms(lambda: xt.exsum_bits(x))
+        for name, (a, b) in cs.bench_dot_data(xt, n).items():
+            a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+            res[f"exdot_bits n=2^24 {name}"] = ms(lambda: xt.exdot_bits(a, b))
+        print(json.dumps(res), flush=True)
+        return
     for n in (1 << 16, 1 << 19, 1 << 24):
         data = {"wide": (xt.init_fpuniform(n, 300, -150, seed=11),
                          xt.init_fpuniform(n, 300, -150, seed=12))}
@@ -96,10 +115,11 @@ def main() -> None:
     ap.add_argument("--tree", type=Path, default=None)
     ap.add_argument("--pairs", type=int, default=1,
                     help="turns of (DIR, this, this, DIR) with --tree")
+    ap.add_argument("--set", choices=("exact", "ladders"), default="exact")
     ap.add_argument("--child", type=Path, default=None)
     args = ap.parse_args()
     if args.child is not None:
-        child(args.child.resolve())
+        child(args.child.resolve(), args.set)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -108,7 +128,8 @@ def main() -> None:
         args.tree.resolve(), HERE, HERE, args.tree.resolve()]
     runs = []
     for tree in trees:
-        out = subprocess.run([sys.executable, __file__, "--child", str(tree)],
+        out = subprocess.run([sys.executable, __file__, "--child", str(tree),
+                              "--set", args.set],
                              capture_output=True, text=True,
                              env={**os.environ, "PYTHONPATH": str(tree)})
         if out.returncode != 0:

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the exact sum kernel B2 and the anchored dot kernel B12
-goes, on one GPU.
+"""Where the time of the exact sum kernel B2, the anchored dot kernel B12,
+the anchored sum kernel B11 and the term rounding B3 goes, on one GPU.
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 and the CUDA toolkit:
 
-    python3 scripts/stream_split.py [--csrc DIR]
+    python3 scripts/stream_split.py [--csrc DIR] [--parts b2b12,b11b3]
 
 It compiles copies of ``DIR/sum_kernel.cu`` and ``DIR/dot_mxu.cu``
 (default: this checkout's ``csrc``; give an older checkout's to measure
@@ -36,8 +36,19 @@ names:
   bits: B2 at four resident blocks an SM and at four doubles a lane a
   step, B12 at four blocks and at eight pairs a step; timed only (wrong
   bits): B2 with a plain shared store in place of each miss atomic and
-  without its last block's finish, B12 without its products and without
-  its frame's read-modify-writes.
+  without its last block's finish, B12 without its products, without
+  its frame's read-modify-writes and without its last block's rounding.
+
+``--parts b11b3`` (``sum_mxu.cu``, ``round_terms.cu``) times B11 at
+n = 2^24 on the bench lognormal data at nwa 3, 4 and 5 (its workspace's
+zeroing included: the window pass) in turns with ``torch.sum``: in its
+grid-stride layout (``sum_flat_kernel`` on ``deposit_grid``) as it is,
+without its frame add (the loads alone) and on the occupancy calculator's
+grid; in its persistent layout (``sum_window_kernel``) against its other
+designs, steps, loads alone and without the last block's rounding (see
+``new_b11``), with resources and the main loop's SASS.  Then B3: its
+wrapper against an empty launch, its kernel launched from C against as
+many empty launches, and one rounding's latency as device code alone.
 """
 
 from __future__ import annotations
@@ -340,6 +351,12 @@ DOT_OCC4 = {"dot_mxu.cu": {"__launch_bounds__(kThreads, 3)":
 # B12, exact: eight pairs a lane a step (twice the bytes in flight)
 DOT_STEP8 = {"dot_mxu.cu": {"constexpr int kPerStep = 4;":
                             "constexpr int kPerStep = 8;"}}
+# B11 and B12, timed only (no bits): the last block carries the terms but
+# does not round them, to show the fold's cost
+NO_ROUND = {"round.cuh": {
+    "  out[T + 1] = static_cast<long long>(\n"
+    "      round_scaled_terms(terms, FramePos{}, T, limbs, frame_limbs(T), e));":
+    "  (void)limbs;\n  (void)e;"}}
 
 
 def new_layout(csrc: Path, smi: str) -> None:
@@ -366,6 +383,8 @@ def new_layout(csrc: Path, smi: str) -> None:
             "b12_normw": ("dot_mxu", NEW_DOT_SIG, {"dot_mxu.cu": normw}),
             "b12_occ4": ("dot_mxu", NEW_DOT_SIG, DOT_OCC4),
             "b12_step8": ("dot_mxu", NEW_DOT_SIG, DOT_STEP8)}
+    if "finish_frame" in (csrc / "dot_mxu.cu").read_text():
+        jobs["b12_no_round"] = ("dot_mxu", NEW_DOT_SIG, NO_ROUND)
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {tag: pool.submit(ds.build, csrc, src, tag, "", sigs, edits)
                 for tag, (src, sigs, edits) in jobs.items()}
@@ -425,19 +444,21 @@ def new_layout(csrc: Path, smi: str) -> None:
             if tag.startswith("b12_")}
 
     def run(lib):
-        ws = torch.zeros(13, dtype=torch.int64, device="cuda")
+        ws = torch.zeros(14, dtype=torch.int64, device="cuda")
         _build.check(lib.dot_flat_cuda(p(a), p(b), n, p(ea), p(eb), p(ws),
                                        stream), "dot_flat_cuda")
         return ws
 
-    # the terms and the flag (ws[12] is the ticket: the grid's size)
-    want = run(dots["b12_kept"])[:12]
+    # the terms, the flag and, where the last block rounds, the bits (then
+    # ws[13] is the ticket, else ws[12]: the grid's size)
+    keep = 13 if "finish_frame" in (csrc / "dot_mxu.cu").read_text() else 12
+    want = run(dots["b12_kept"])[:keep]
     for tag in ("b12_occ4", "b12_step8"):
-        if not torch.equal(run(dots[tag])[:12], want):
+        if not torch.equal(run(dots[tag])[:keep], want):
             raise SystemExit(f"B12 {tag} differs")
     fns = {f"B12 {tag[4:]}": (lambda lib=lib: run(lib))
            for tag, lib in dots.items()}
-    fns["torch.zeros(13)"] = lambda: torch.zeros(13, dtype=torch.int64,
+    fns["torch.zeros(14)"] = lambda: torch.zeros(14, dtype=torch.int64,
                                                  device="cuda")
     fns["torch.dot"] = lambda: torch.dot(a, b)
     for key, ts in ds.in_turns(fns, 9, 10).items():
@@ -445,16 +466,444 @@ def new_layout(csrc: Path, smi: str) -> None:
               f"[{smi}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# B11 (the anchored sum) and B3 (the term rounding)
+# ---------------------------------------------------------------------------
+
+def bench_lognormal_sum():
+    """chip_smoke.py's bench lognormal sum data (bench_sum.py:32-37)."""
+    return xt.init_lognormal(cs.N_BIG, 1.0, 2.0, seed=10)
+
+
+# B3 on its own: its kernel launched `reps` times from one C call (no
+# wrapper work between launches) beside as many empty launches, and the
+# device rounding run `reps` times in one thread of one launch, each
+# rounding's exponent depending on the last one's bits, so that the time
+# is the latency of one rounding with its limbs in local memory (B3's
+# kernel) or in shared memory (the window kernels' last blocks).
+B3_PROBES = r"""
+namespace {
+__global__ void empty_kernel() {}
+
+template <bool kShared>
+__global__ void round_loop_kernel(const long long* __restrict__ vals,
+                                  Positions pos, int t, int nl,
+                                  const int* __restrict__ eadj, int eadd,
+                                  int reps, unsigned long long* out) {
+  __shared__ long long s_limbs[kShared ? kMaxTermLimbs : 1];
+  long long l_limbs[kShared ? 1 : kMaxTermLimbs];
+  long long* limbs = kShared ? s_limbs : l_limbs;
+  const int e = *eadj + eadd;
+  unsigned long long acc = 0ULL;
+  for (int i = 0; i < reps; ++i) {
+    acc ^= exblas::round_scaled_terms(vals, pos.p, t, limbs, nl,
+                                      e + static_cast<int>(acc & 1ULL));
+  }
+  *out = acc;
+}
+}  // namespace
+
+extern "C" int probe_launches(int which, const void* vals, const void* pos,
+                              int t, int nl, const void* eadj, int eadd,
+                              int reps, void* out, void* stream) {
+  Positions p{};
+  for (int i = 0; i < t; ++i) p.p[i] = static_cast<const int*>(pos)[i];
+  const auto s = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < reps; ++i) {
+    if (which == 0) {
+      round_terms_kernel<<<1, 1, 0, s>>>(
+          static_cast<const long long*>(vals), p, t, nl,
+          static_cast<const int*>(eadj), eadd,
+          static_cast<unsigned long long*>(out));
+    } else {
+      empty_kernel<<<1, 1, 0, s>>>();
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int probe_loop(int shared, const void* vals, const void* pos,
+                          int t, int nl, const void* eadj, int eadd,
+                          int reps, void* out, void* stream) {
+  Positions p{};
+  for (int i = 0; i < t; ++i) p.p[i] = static_cast<const int*>(pos)[i];
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto v = static_cast<const long long*>(vals);
+  const auto ea = static_cast<const int*>(eadj);
+  const auto o = static_cast<unsigned long long*>(out);
+  if (shared) {
+    round_loop_kernel<true><<<1, 1, 0, s>>>(v, p, t, nl, ea, eadd, reps, o);
+  } else {
+    round_loop_kernel<false><<<1, 1, 0, s>>>(v, p, t, nl, ea, eadd, reps, o);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+B3_SIG = {"probe_launches": (_I, _P, _P, _I, _I, _P, _I, _I, _P, _P),
+          "probe_loop": (_I, _P, _P, _I, _I, _P, _I, _I, _P, _P)}
+
+
+def b3_split(csrc: Path, smi: str, terms: dict) -> None:
+    """B3 against an empty launch, by its wrapper and from C, and the
+    device latency of one rounding; ``terms``: {label: (vals, positions,
+    e_adjust, e_offset)} on the card."""
+    from exblas_tpu_torch.ops.kernels import round_in_kernel as rk
+
+    p, stream = _build.ptr, _build.stream_of(torch.device("cuda"))
+    lib, lines, _ = ds.build(csrc, "round_terms", "b3_probe", B3_PROBES,
+                             B3_SIG)
+    print("ptxas b3_probe:", *lines, sep="\n  ", flush=True)
+    out = torch.zeros((), dtype=torch.int64, device="cuda")
+    for label, (vals, pos, eadj, eoff) in terms.items():
+        t, nl = len(pos), rk.term_limbs_count(pos)
+        cpos = (ctypes.c_int * t)(*pos)
+
+        def launches(which, reps=100):
+            _build.check(lib.probe_launches(which, p(vals), cpos, t, nl,
+                                            p(eadj), eoff, reps, p(out),
+                                            stream), "probe_launches")
+
+        def loop(shared, reps=1000):
+            _build.check(lib.probe_loop(shared, p(vals), cpos, t, nl,
+                                        p(eadj), eoff, reps, p(out), stream),
+                         "probe_loop")
+
+        fns = {"B3 wrapper (a call)": lambda: rk.round_scaled_terms_cuda(
+                   vals, pos, eadj, eoff),
+               "empty launch, torch.cuda._sleep(0) (a call)":
+                   lambda: torch.cuda._sleep(0)}
+        for key, ts in ds.in_turns(fns, 9, 50).items():
+            print(f"B3 {label} {key}: {ts[0]:.4f} / {ts[1]:.4f} ms [{smi}]",
+                  flush=True)
+        fns = {"B3 kernel, 100 launches from C (a launch)":
+                   lambda: launches(0),
+               "empty kernel, 100 launches from C (a launch)":
+                   lambda: launches(1),
+               "one rounding in one thread, limbs in local memory":
+                   lambda: loop(0),
+               "one rounding in one thread, limbs in shared memory":
+                   lambda: loop(1)}
+        per = {k: 100 if "100" in k else 1000 for k in fns}
+        for key, ts in ds.in_turns(fns, 5, 3).items():
+            print(f"B3 {label} {key}: {1e3 * ts[0] / per[key]:.3f} / "
+                  f"{1e3 * ts[1] / per[key]:.3f} us [{smi}]", flush=True)
+
+
+# B11 in its grid-stride layout (sum_flat_kernel<NW> on deposit_grid, four 8-byte
+# loads a thread a step, anchored.cuh's two's complement and shifter):
+# its resources and grid, and variants: without its frame add (the decode
+# kept, folded into one XOR: the loads alone; wrong sums, timed only) and
+# on the occupancy calculator's grid (held to the kept sums).
+OLD_B11 = ds.ATTRS + WAVE + r"""
+static const void* b11_fn(int nwa) {
+  return nwa == 3 ? reinterpret_cast<const void*>(sum_flat_kernel<3>)
+         : nwa == 4 ? reinterpret_cast<const void*>(sum_flat_kernel<4>)
+                    : reinterpret_cast<const void*>(sum_flat_kernel<5>);
+}
+extern "C" int probe_attrs(int nwa, int* out) {
+  return put_attrs(b11_fn(nwa), exblas::kBlock, out);
+}
+extern "C" int probe_grid(long long n, int* out) {
+  cudaError_t err = exblas::deposit_grid(n, &out[0]);
+  out[1] = wave_blocks(b11_fn(3), exblas::kBlock);
+  return static_cast<int>(err);
+}
+"""
+OLD_B11_SIG = {"sum_flat_cuda": (_P, _N, _P, _I, _P, _P),
+               "probe_attrs": (_I, _P), "probe_grid": (_N, _P)}
+OLD_B11_OCC = {"sum_mxu.cu": {
+    '#include "deposit.cuh"':
+    '#include "deposit.cuh"\n#include "stream.cuh"',
+    "  cudaError_t err = exblas::deposit_grid(n, &grid);":
+    "  cudaError_t err = exblas::persistent_grid(\n"
+    "      reinterpret_cast<const void*>(sum_flat_kernel<NW>), exblas::kBlock,\n"
+    "      (n + exblas::kBlock * kUnroll - 1) / (exblas::kBlock * kUnroll),\n"
+    "      &grid);"}}
+
+
+def b11_timing(libs: dict, held: tuple, smi: str, ws_len, keep) -> None:
+    """B11 at n = 2^24 on the bench lognormal data at nwa 3, 4 and 5 at its
+    exact anchor: ``libs`` {label: library with sum_flat_cuda} in turns
+    with torch.sum; the libraries in ``held`` must give the first one's
+    ws[:keep(nwa)] (of ws_len(nwa) int64: the sums or terms, the flag and
+    any bits, not the ticket)."""
+    from exblas_tpu_torch.ops.kernels import sum_mxu as sm
+
+    p, stream = _build.ptr, _build.stream_of(torch.device("cuda"))
+    n = cs.N_BIG
+    x = torch.from_numpy(bench_lognormal_sum()).cuda()
+    e = sm.exact_anchor(x)
+    first = next(iter(libs))
+    for nwa in (3, 4, 5):
+        def run(lib, nwa=nwa):
+            ws = torch.zeros(ws_len(nwa), dtype=torch.int64, device="cuda")
+            _build.check(lib.sum_flat_cuda(p(x), n, p(e), nwa, p(ws), stream),
+                         "sum_flat_cuda")
+            return ws
+
+        want = run(libs[first])[:keep(nwa)]
+        for label in held:
+            if not torch.equal(run(libs[label])[:keep(nwa)], want):
+                raise SystemExit(f"B11 {label} nwa={nwa} differs")
+        fns = {f"B11 {label}": (lambda lib=lib: run(lib))
+               for label, lib in libs.items()}
+        fns["torch.zeros"] = lambda: torch.zeros(ws_len(nwa),
+                                                 dtype=torch.int64,
+                                                 device="cuda")
+        fns["torch.sum"] = lambda: torch.sum(x)
+        for key, ts in ds.in_turns(fns, 9, 10).items():
+            print(f"n=2^24 bench lognormal nwa={nwa} {key}: {ts[0]:.4f} / "
+                  f"{ts[1]:.4f} ms [{smi}]", flush=True)
+
+
+def old_b11(csrc: Path, smi: str) -> None:
+    loads = cut(csrc / "sum_mxu.cu", "      const bool add = m != 0ULL",
+                "add && b[u] < 0);",
+                "      sums[0] ^= m ^ static_cast<unsigned long long>(sh);")
+    jobs = {"kept": None, "loads_alone": {"sum_mxu.cu": loads},
+            "occupancy_grid": OLD_B11_OCC}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {tag: pool.submit(ds.build, csrc, "sum_mxu", f"b11_{tag}",
+                                 OLD_B11, OLD_B11_SIG, edits)
+                for tag, edits in jobs.items()}
+        libs = {tag: f.result() for tag, f in futs.items()}
+    for tag, (lib, lines, path) in libs.items():
+        print(f"ptxas b11_{tag}:", *lines, sep="\n  ", flush=True)
+        for nwa in (3, 4, 5):
+            ds.attrs(lib, nwa, f"B11 {tag} nwa={nwa}")
+        if tag == "kept":
+            summary_sass(path, "b11_kept", ("sum_flat",))
+            print("  (the loop adds 4 elements a thread: kUnroll)", flush=True)
+    grid_line(libs["kept"][0], "B11 sum_flat_kernel", cs.N_BIG)
+    b11_timing({tag: lib for tag, (lib, _, _) in libs.items()},
+               ("occupancy_grid",), smi, lambda nwa: nwa + 2,
+               lambda nwa: nwa + 2)
+
+
+# B11 on the persistent shape: the kept design (i) (anchored.cuh
+# SumFrame: each thread's word sums in shared memory, indexed by the word
+# and the sign, as B12 keeps its frame: three 64-bit read-modify-writes an
+# element) against the other two, each held to the kept terms, flag and
+# bits:
+#   (ii) word sums in registers with the same sign split, each of the
+#        element's three words selecting its target word directly;
+#   (iii) one two's-complement register window of nwa + 1 words over the
+#        whole frame: the signed significand shifted by sh mod 64 (two
+#        64-bit shifts), placed at the frame's 64-bit half sh / 64 and
+#        added by one carry chain;
+# the kept design at eight elements a thread a step (four 16-byte loads,
+# as B2); and, timed only (wrong sums): without the frame's adds (the
+# decode kept, folded into one XOR: the loads alone), and without the
+# last block's rounding (NO_ROUND).
+FRAME_DECODE = r"""
+  static constexpr int kShared = 16;  // the last block's rounding limbs
+  int c;
+  unsigned long long bad;
+  int exm;
+  __device__ __forceinline__ void init(int anchor, unsigned long long*) {
+    c = anchor + 1075 + 1 - 32 * NW;
+    bad = 0ULL;
+    exm = 0;
+    clear();
+  }
+  __device__ __forceinline__ bool flagged() const {
+    return bad != 0ULL || exm == 0x7FF;
+  }
+"""
+SPLIT_FRAME = r"""
+template <int NW>
+struct SplitFrame {
+  static constexpr int kWords = NW + 1;
+  static constexpr int kMaxSh = 32 * NW - 53;
+  unsigned long long pos[kWords], neg[kWords];
+""" + FRAME_DECODE + r"""
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) pos[k] = neg[k] = 0ULL;
+  }
+  __device__ __forceinline__ void add(long long v) {
+    const int ex = static_cast<int>((v >> 52) & 0x7FF);
+    const int sh = (ex > 1 ? ex : 1) - c;
+    const bool in = static_cast<unsigned>(sh) <= kMaxSh && ex != 0x7FF;
+    if (!in) bad |= static_cast<unsigned long long>(v) << 1;
+    exm = max(exm, ex);
+    const unsigned long long m =
+        in ? (static_cast<unsigned long long>(v) & ((1ULL << 52) - 1ULL)) |
+                 (ex != 0 ? 1ULL << 52 : 0ULL)
+           : 0ULL;
+    const int s = in ? sh : 0;
+    const unsigned r = static_cast<unsigned>(s) & 31u;
+    const unsigned m0 = static_cast<unsigned>(m);
+    const unsigned m1 = static_cast<unsigned>(m >> 32);
+    const unsigned y0 = m0 << r, y1 = __funnelshift_l(m0, m1, r),
+                   y2 = __funnelshift_l(m1, 0u, r);
+    const int q = s >> 5;
+    const bool ng = v < 0;
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      const unsigned t = q == k ? y0 : (q == k - 1 ? y1 : (q == k - 2 ? y2 : 0u));
+      pos[k] += ng ? 0u : t;
+      neg[k] += ng ? t : 0u;
+    }
+  }
+  __device__ __forceinline__ long long word(int k) const {
+    return static_cast<long long>(pos[k] - neg[k]);
+  }
+};
+"""
+WINDOW_FRAME = r"""
+template <int N>
+__device__ __forceinline__ void add_words(unsigned (&w)[N],
+                                          const unsigned (&x)[N]) {
+  if constexpr (N == 4) {
+    asm("add.cc.u32 %0, %0, %4;\n\t"
+        "addc.cc.u32 %1, %1, %5;\n\t"
+        "addc.cc.u32 %2, %2, %6;\n\t"
+        "addc.u32 %3, %3, %7;"
+        : "+r"(w[0]), "+r"(w[1]), "+r"(w[2]), "+r"(w[3])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]));
+  } else if constexpr (N == 5) {
+    exblas::add160(w, x[0], x[1], x[2], x[3], x[4]);
+  } else {
+    asm("add.cc.u32 %0, %0, %6;\n\t"
+        "addc.cc.u32 %1, %1, %7;\n\t"
+        "addc.cc.u32 %2, %2, %8;\n\t"
+        "addc.cc.u32 %3, %3, %9;\n\t"
+        "addc.cc.u32 %4, %4, %10;\n\t"
+        "addc.u32 %5, %5, %11;"
+        : "+r"(w[0]), "+r"(w[1]), "+r"(w[2]), "+r"(w[3]), "+r"(w[4]),
+          "+r"(w[5])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]));
+  }
+}
+
+template <int NW>
+struct SumWindow {
+  static constexpr int kWords = NW + 1;
+  static constexpr int kMaxSh = 32 * NW - 53;
+  unsigned w[kWords];
+""" + FRAME_DECODE + r"""
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) w[j] = 0u;
+  }
+  __device__ __forceinline__ void add(long long v) {
+    const int ex = static_cast<int>((v >> 52) & 0x7FF);
+    const int sh = (ex > 1 ? ex : 1) - c;
+    const bool in = static_cast<unsigned>(sh) <= kMaxSh && ex != 0x7FF;
+    if (!in) bad |= static_cast<unsigned long long>(v) << 1;
+    exm = max(exm, ex);
+    const long long keep = in ? -1LL : 0LL;
+    const long long mant =
+        ((v & ((1LL << 52) - 1)) | (ex != 0 ? 1LL << 52 : 0LL)) & keep;
+    const long long neg = keep & (v >> 63);
+    const long long sv = (mant ^ neg) - neg;
+    const unsigned s = static_cast<unsigned>(sh) & 63u;
+    const unsigned long long lo =
+        exblas::shl64(static_cast<unsigned long long>(sv), s);
+    const long long hi = exblas::sar64(sv, 64u - s);
+    const unsigned y[6] = {
+        static_cast<unsigned>(lo), static_cast<unsigned>(lo >> 32),
+        static_cast<unsigned>(hi), static_cast<unsigned>(hi >> 32),
+        static_cast<unsigned>(neg), static_cast<unsigned>(neg)};
+    const bool h = kMaxSh >= 64 && sh >= 64;
+    unsigned x[kWords];
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) x[j] = h ? (j >= 2 ? y[j - 2] : 0u) : y[j];
+    add_words<kWords>(w, x);
+  }
+  __device__ __forceinline__ long long word(int k) const {
+    return k < NW ? static_cast<long long>(w[k])
+                  : static_cast<long long>(static_cast<int>(w[k]));
+  }
+};
+"""
+NEW_B11_SIG = {"sum_flat_cuda": _build.SIGNATURES["sum_flat_cuda"],
+               "sum_flat_attrs": (_I, _P)}
+
+
+def frame_design(name: str, code: str) -> dict:
+    return {"sum_mxu.cu": {
+        "constexpr int kUnits = kPerStep / 2;  // 16-byte loads a thread a "
+        "step\n":
+        "constexpr int kUnits = kPerStep / 2;  // 16-byte loads a thread a "
+        "step\n" + code,
+        "  using Frame = exblas::SumFrame<NW, kThreads>;":
+        f"  using Frame = {name}<NW>;"}}
+
+
+def new_b11(csrc: Path, smi: str) -> None:
+    loads = cut(csrc / "anchored.cuh",
+                "    const unsigned r = static_cast<unsigned>(s) & 31u;",
+                "    p[2 * kThreads] += __funnelshift_l(m1, 0u, r);",
+                "    bad ^= m ^ static_cast<unsigned long long>(s);")
+    jobs = {"kept": None,
+            "ii_split_registers": frame_design("SplitFrame", SPLIT_FRAME),
+            "iii_register_window": frame_design("SumWindow", WINDOW_FRAME),
+            "step8": {"sum_mxu.cu": {"constexpr int kPerStep = 4;":
+                                     "constexpr int kPerStep = 8;"}},
+            "loads_alone": {"anchored.cuh": loads},
+            "no_round": NO_ROUND}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {tag: pool.submit(ds.build, csrc, "sum_mxu", f"b11_{tag}", "",
+                                 NEW_B11_SIG, edits)
+                for tag, edits in jobs.items()}
+        libs = {tag: f.result() for tag, f in futs.items()}
+    for tag, (lib, lines, path) in libs.items():
+        print(f"ptxas b11_{tag}:", *lines, sep="\n  ", flush=True)
+        for nwa in (3, 4, 5):
+            ds.new_attrs(lib.sum_flat_attrs, f"B11 {tag} nwa={nwa}", nwa)
+        if tag not in ("loads_alone", "no_round"):
+            summary_sass(path, f"b11_{tag}", ("sum_window",))
+            print(f"  (the loop adds {8 if tag == 'step8' else 4} elements "
+                  "a thread: kPerStep)", flush=True)
+    b11_timing({tag: lib for tag, (lib, _, _) in libs.items()},
+               ("ii_split_registers", "iii_register_window", "step8"), smi,
+               lambda nwa: nwa + 4, lambda nwa: nwa + 3)
+
+
+def b3_terms() -> dict:
+    """B3's inputs on the main path: B11's terms at nwa 3 and 5 and B12's,
+    at the bench lognormal data's exact anchors."""
+    from exblas_tpu_torch.ops.kernels import dot_mxu as dm
+    from exblas_tpu_torch.ops.kernels import sum_mxu as sm
+
+    x = torch.from_numpy(bench_lognormal_sum()).cuda()
+    e = sm.exact_anchor(x)
+    out = {}
+    for nwa in (3, 5):
+        rel, _ = sm.sum_flat_cuda(x, e, nwa)
+        out[f"sum nwa={nwa} ({nwa + 1} terms)"] = (
+            rel.clone(), sm.frame_positions(nwa), e, 1 - 32 * nwa)
+    a, b = (torch.from_numpy(v).cuda() for v in lognormal_pair())
+    ea, eb = sm.exact_anchor(a), sm.exact_anchor(b)
+    rel, _ = dm.dot_flat_cuda(a, b, ea, eb)
+    out["dot (11 terms)"] = (rel.clone(), sm.frame_positions(dm.FRAME_WORDS),
+                             ea + eb, dm.FRAME_OFFSET)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", type=Path, default=_build.CSRC)
+    ap.add_argument("--parts", default="b2b12,b11b3",
+                    help="comma-separated: b2b12 (B2 and B12), b11b3 (B11 "
+                         "and B3)")
     args = ap.parse_args()
+    parts = args.parts.split(",")
     smi = cs.phase_device()
     csrc = args.csrc.resolve()
-    if "sum_deposit_kernel" in (csrc / "sum_kernel.cu").read_text():
-        old_layout(csrc, smi)
-    else:
-        new_layout(csrc, smi)
+    if "b2b12" in parts:
+        if "sum_deposit_kernel" in (csrc / "sum_kernel.cu").read_text():
+            old_layout(csrc, smi)
+        else:
+            new_layout(csrc, smi)
+    if "b11b3" in parts:
+        if "deposit_grid" in (csrc / "sum_mxu.cu").read_text():
+            old_b11(csrc, smi)
+        else:
+            new_b11(csrc, smi)
+        b3_split(csrc, smi, b3_terms())
 
 
 if __name__ == "__main__":

@@ -17,12 +17,14 @@ import exblas_tpu as xb
 import exblas_tpu_torch as xt
 from exblas_tpu.core.ieee import split_f64
 from exblas_tpu_torch.core.rounding import round_superacc_to_f64_bits
-from exblas_tpu_torch.ops.exdot import (_exdot_acc_mxu_auto,
+from exblas_tpu_torch.ops.exdot import (_dot_mxu_ladder,
+                                        _exdot_acc_mxu_auto,
                                         _exdot_bits_mxu_auto)
 from exblas_tpu_torch.ops.kernels import dot_mxu, sum_mxu
 from oracle import exact_dot
-from torch_parity import (assert_same_bits, assert_same_state, jax_dot_bits,
-                          jax_dot_route, jax_state, port_state, u64)
+from torch_parity import (assert_same_bits, assert_same_state,
+                          cached_jax_bits, jax_dot_bits, jax_dot_route,
+                          jax_state, port_state, u64, window_pass_flags)
 
 
 def _t(x):
@@ -109,14 +111,42 @@ CASES = [
       ("fast",)) for n in (1, 127, 8192, 8193, 65536, 65537)]
 
 
+@pytest.fixture(scope="module")
+def jax_bits():
+    """JAX's bits (``impl="xla"``) of a case, computed once a module and
+    worker (on the zero-padded data: the same exact value) and shared by
+    the tests that hold the port to them."""
+    return cached_jax_bits(jax_dot_bits)
+
+
 @pytest.mark.parametrize("name,gen,route", CASES, ids=[c[0] for c in CASES])
-def test_ladder_bits_and_route(name, gen, route):
+def test_ladder_bits_and_route(name, gen, route, jax_bits):
     a, b = gen()
     got = u64(_exdot_bits_mxu_auto(_t(a), _t(b), False))
     assert_same_bits(got, _oracle_bits(a, b), f"{name} vs exact oracle")
-    assert_same_bits(got, jax_dot_bits(a, b), f"{name} vs jax xla")
+    assert_same_bits(got, jax_bits(name, a, b), f"{name} vs jax xla")
     assert _exdot_bits_mxu_auto.route == route == jax_dot_route(a, b), (
         name, _exdot_bits_mxu_auto.route)
+
+
+@pytest.mark.parametrize("name,gen,route", CASES, ids=[c[0] for c in CASES])
+def test_dot_bits_mxu_matches_jax(name, gen, route, jax_bits):
+    """Each window pass of the plain path (dot_bits_mxu, kernels=False) at
+    the anchors the ladder gives it: the flags the case's route implies,
+    and JAX's bits from the pass that is not flagged."""
+    a, b = gen()
+    passes = []
+
+    def fast(*v):
+        bits, bad = dot_mxu.dot_bits_mxu(*v, False)
+        passes.append((bool(bad), bits))
+        return bits, bad
+
+    _dot_mxu_ladder(_t(a), _t(b), fast, lambda *v: None)
+    assert [bad for bad, _ in passes] == window_pass_flags(route)
+    for bad, bits in passes:
+        if not bad:
+            assert_same_bits(bits, jax_bits(name, a, b), name)
 
 
 @pytest.mark.parametrize("val", [np.inf, -np.inf, np.nan])

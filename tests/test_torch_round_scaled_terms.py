@@ -15,7 +15,7 @@ import torch
 from exblas_tpu_torch.ops.kernels.round_in_kernel import (
     round_scaled_terms_cuda, round_scaled_terms_torch, term_limbs_count)
 from oracle import _round_fraction
-from torch_parity import u64
+from torch_parity import U64, u64
 
 
 def _port(vals, pos, eadj) -> int:
@@ -99,3 +99,69 @@ def test_cuda_wrapper_refuses_cpu_tensor():
         round_scaled_terms_cuda(torch.tensor([1], dtype=torch.int64), (0,),
                                 torch.tensor(0, dtype=torch.int32))
     assert round_scaled_terms_cuda.launches == before
+
+
+# --- the last block of B11 and B12 (core/window.py) ----------------------------
+
+def _plain(sums, e) -> int:
+    return _port(sums, tuple(32 * k for k in range(len(sums))), e)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_last_block_model_matches_plain_rounding(seed):
+    """The last block's carry into canonical terms and its rounding, step
+    for step as the device runs them, give the exact value's digits and
+    round_scaled_terms_torch's bits on random workspaces of B11 (4 to 6
+    sums) and B12 (11 sums), sums below 2^62 in magnitude, exponents from
+    deep underflow to overflow."""
+    from exblas_tpu_torch.core import window
+
+    rng = np.random.RandomState(100 + seed)
+    for k in range(60):
+        t = (4, 5, 6, 11)[k % 4]
+        top = 1 << int(rng.choice((20, 40, 62)))
+        sums = [int(v) for v in rng.randint(-top + 1, top, t,
+                                            dtype=np.int64)]
+        e = int(rng.randint(-1500, 1100))
+        terms, bits = window.last_block(sums, e)
+        value = sum(v << (32 * i) for i, v in enumerate(sums))
+        assert sum(v << (32 * i) for i, v in enumerate(terms)) == value
+        assert all(0 <= v < 1 << 32 for v in terms[:-1])
+        assert terms[-1] == value >> (32 * (t - 1))
+        assert bits & U64 == _plain(sums, e) == _fraction_bits(
+            sums, [32 * i for i in range(t)], e), (seed, k)
+
+
+# (sums, e): a negative total; an exact zero (+0); a subnormal result of
+# B11 at the lowest anchor (-1023, nwa 3: e = -1023 + 1 - 96); overflow
+# of B11 at anchor 1032 (nwa 5: e = 1032 + 1 - 160) and of B12 at anchors
+# 1032 (e = 2 * 1032 + 2 - 320), to +Inf and -Inf
+LAST_BLOCK_EDGES = [
+    ([5, -3, 7, -(1 << 40)], -96),
+    ([1 << 32, -1, 0, 0], 0),
+    ([(1 << 32) - 1, (1 << 20) + 3, 0, 0], -1023 + 1 - 96),
+    ([0, 0, 0, 0, 1 << 31, 7], 1032 + 1 - 160),
+    ([0, 0, 0, 0, 0, -1], 1032 + 1 - 160),
+    ([0] * 10 + [1], 2 * 1032 + 2 - 320),
+    ([12345] + [0] * 9 + [-1], 2 * 1032 + 2 - 320),
+]
+
+
+@pytest.mark.parametrize("sums,e", LAST_BLOCK_EDGES)
+def test_last_block_model_edges(sums, e):
+    from exblas_tpu_torch.core import window
+
+    _, bits = window.last_block(sums, e)
+    want = _plain(sums, e)
+    assert bits & U64 == want == _fraction_bits(
+        sums, [32 * i for i in range(len(sums))], e)
+    value = sum(v << (32 * i) for i, v in enumerate(sums))
+    f = float(np.uint64(want).view(np.float64))
+    if value == 0:
+        assert want == 0                           # +0
+    elif value < 0:
+        assert want >> 63 == 1
+    if e >= 873:
+        assert np.isinf(f)
+    if e == -1118:
+        assert 0 < f < np.finfo(np.float64).tiny   # subnormal

@@ -20,11 +20,12 @@ import exblas_tpu_torch as xt
 from exblas_tpu.core.ieee import split_f64
 from exblas_tpu_torch.core.rounding import round_superacc_to_f64_bits
 from exblas_tpu_torch.ops.exsum import (_exsum_acc_mxu_auto,
-                                        _exsum_bits_mxu_auto)
+                                        _exsum_bits_mxu_auto, _sum_ladder)
 from exblas_tpu_torch.ops.kernels import sum_mxu
 from oracle import exact_sum
-from torch_parity import (assert_same_bits, assert_same_state, jax_state,
-                          jax_sum_bits, jax_sum_route, port_state, u64)
+from torch_parity import (assert_same_bits, assert_same_state,
+                          cached_jax_bits, jax_state, jax_sum_bits,
+                          jax_sum_route, port_state, u64, window_pass_flags)
 
 
 def _t(x):
@@ -136,14 +137,42 @@ ROUTES = {
 }
 
 
+@pytest.fixture(scope="module")
+def jax_bits():
+    """JAX's bits (``impl="xla"``) of a case, computed once a module and
+    worker (on the zero-padded data: the same exact value) and shared by
+    the tests that hold the port to them."""
+    return cached_jax_bits(jax_sum_bits)
+
+
 @pytest.mark.parametrize("name,gen", CASES, ids=[c[0] for c in CASES])
-def test_ladder_bits_and_route(name, gen):
+def test_ladder_bits_and_route(name, gen, jax_bits):
     x = gen()
     got = u64(_exsum_bits_mxu_auto(_t(x), False))
     assert_same_bits(got, _fsum_bits(x), f"{name} vs math.fsum")
-    assert_same_bits(got, jax_sum_bits(x), f"{name} vs jax xla")
+    assert_same_bits(got, jax_bits(name, x), f"{name} vs jax xla")
     route = _exsum_bits_mxu_auto.route
     assert route == ROUTES[name] == jax_sum_route(x), (name, route)
+
+
+@pytest.mark.parametrize("name,gen", CASES, ids=[c[0] for c in CASES])
+def test_sum_bits_mxu_matches_jax(name, gen, jax_bits):
+    """Each window pass of the plain path (sum_bits_mxu, kernels=False) at
+    the window and anchor the ladder gives it: the flags the case's route
+    implies, and JAX's bits from the pass that is not flagged."""
+    x = gen()
+    passes = []
+
+    def fast(v, e, nwa):
+        bits, bad = sum_mxu.sum_bits_mxu(v, e, nwa, False)
+        passes.append((bool(bad), bits))
+        return bits, bad
+
+    _sum_ladder(_t(x), fast, lambda v: None)
+    assert [bad for bad, _ in passes] == window_pass_flags(ROUTES[name])
+    for bad, bits in passes:
+        if not bad:
+            assert_same_bits(bits, jax_bits(name, x), name)
 
 
 @pytest.mark.parametrize("val", [np.inf, -np.inf, np.nan])
@@ -270,7 +299,7 @@ def _port_sum_value(x, anchor: int, nwa: int):
                                                           dtype=torch.int32),
                                       nwa)
     return sum(int(r) << (32 * k) for k, r in enumerate(rel.tolist())), \
-        bool(bad)
+        bool(bad), rel
 
 
 @pytest.mark.parametrize("nwa,flagged", [(3, False), (4, False), (5, False),
@@ -285,11 +314,14 @@ def test_sum_flat_matches_pallas(nwa, flagged):
     anchor = int(sum_mxu.exact_anchor(_t(x)))
     if flagged:
         x[4321] = 2.0**-200          # below the window
-    got, got_bad = _port_sum_value(x, anchor, nwa)
+    got, got_bad, rel = _port_sum_value(x, anchor, nwa)
     want, want_bad = _pallas_sum_value(x, anchor, nwa)
     assert got_bad == want_bad == flagged
     if not flagged:
         assert got == want
+    # the canonical terms the kernel's last block writes
+    assert all(0 <= int(v) < 1 << 32 for v in rel[:-1].tolist())
+    assert int(rel[-1]) == got >> (32 * nwa)
 
 
 # --- rel_limbs_to_abs_limbs --------------------------------------------------
@@ -356,3 +388,27 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         sum_mxu.sum_flat_cuda(x, e, 3)
     assert sum_mxu.sum_flat_cuda.launches == before
+
+
+# --- B11's frame (core/window.py) ----------------------------------------------
+
+@pytest.mark.parametrize("nwa", sum_mxu.NWA_TIERS)
+def test_frame_places_every_shift_and_holds_max_n(nwa):
+    """Every covered shift, with the largest, smallest and a random
+    significand, puts its exact value in three words below 2^32 at frame
+    words q..q + 2 within the nwa + 1 sums a sign (the top word of a
+    frame at q = nwa - 2 is 0: the element ends below 2^(32 nwa)), and
+    MAX_N_MXU elements keep every sum below 2^62."""
+    from exblas_tpu_torch.core import window
+
+    assert window.MAX_N == sum_mxu.MAX_N_MXU
+    assert window.sums_bound() < 1 << 62
+    rs = np.random.RandomState(nwa)
+    for sh in range(32 * nwa - 52):
+        for m in ((1 << 53) - 1, 1 << 52, 1,
+                  int(rs.randint(1, 1 << 53, dtype=np.int64))):
+            q, words = window.element_words(m, sh, nwa)
+            assert all(0 <= w < 1 << 32 for w in words)
+            assert q + 2 <= nwa and (q + 2 < nwa or words[2] == 0)
+            assert sum(w << (32 * (q + j)) for j, w in enumerate(words)) \
+                == m << sh, (m, sh)

@@ -88,6 +88,29 @@ def jax_dot_bits(a, b, **kw) -> int:
                              np.asarray(b, np.float64), impl="xla", **kw))
 
 
+def zero_padded(*vs):
+    """The vectors padded with +0.0 to 2^17 elements (or the next power of
+    two above): the same exact sum or dot in one shape, so that JAX
+    compiles its reference once for all the cases of a module."""
+    n = max(1 << 17, 1 << (len(vs[0]) - 1).bit_length())
+    return [np.concatenate([np.asarray(v, np.float64),
+                            np.zeros(n - len(v))]) for v in vs]
+
+
+def cached_jax_bits(fn):
+    """A JAX reference ``fn`` memoized by case name, for a module-scoped
+    fixture: ``get(name, *vectors)`` computes ``fn`` on the zero-padded
+    vectors once a name and worker."""
+    cache = {}
+
+    def get(name, *vs):
+        if name not in cache:
+            cache[name] = fn(*zero_padded(*vs))
+        return cache[name]
+
+    return get
+
+
 def pallas_interpret(entry: str, *arrays, rows: int = 8):
     """Run a Pallas kernel entry of the JAX package in TPU interpret mode
     (as tests/test_kernel_interpret.py does)."""
@@ -187,3 +210,11 @@ def jax_dot_route(a, b) -> tuple:
     if not (_jax_flag(ba, xa, 5) or _jax_flag(bb, xb_, 5)):
         return ("fast", "retry")
     return ("fast", "retry", "exact")
+
+
+def window_pass_flags(route) -> list:
+    """The flags of the window passes a ladder's route takes: every pass
+    but the last flagged, the last where the route ends in the exact
+    tier."""
+    passes = sum(t != "exact" for t in route)
+    return [True] * (passes - 1) + [route[-1] == "exact"] if passes else []
