@@ -490,6 +490,21 @@ def sum_dot_wrappers():
         rk.round_scaled_terms_cuda)}
 
 
+def all_wrappers():
+    """Every kernel wrapper of the port, by name: the ExSUM/ExDOT ones and
+    those of ExGEMM, ExGEMV and ExTRSV."""
+    from exblas_tpu_torch.ops.kernels import gemm_kernel as gk
+    from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
+    from exblas_tpu_torch.ops.kernels import gemv_kernel as vk
+    from exblas_tpu_torch.ops.kernels import gemv_mxu as vm
+    from exblas_tpu_torch.ops.kernels import trsv_kernel as tk
+
+    return {**sum_dot_wrappers(), **{w.__name__: w for w in (
+        gk.gemm_bits_cuda, gm.gemm_bits_mxu_cuda, vk.gemv_rows_acc_cuda,
+        vm.analyze_gemv_rows_cuda, vm.gemv_bits_mxu_cuda,
+        tk.trsv_lower_x_cuda)}}
+
+
 @contextlib.contextmanager
 def uncounted():
     """Launches inside do not count towards the main path's run: the
@@ -1655,7 +1670,61 @@ def phase_gemm_public(xt, bench) -> tuple[dict, dict]:
         f"{xplan.rung} and the override, bit-equal to the exact kernel "
         f"({n_nan} NaN results, all canonical); the same numpy arrays ran on "
         "the card")
+    check_empty_gemm(xt)
     return launches, errs
+
+
+def check_empty_gemm(xt) -> None:
+    """An empty m, n or k (ROADMAP queue C, C3): the rounded beta*C alone
+    (zeros without C, an empty array for m or n = 0).  At k = 0 B5 runs
+    with an empty loop over k and rounds beta*C in its epilogue, one
+    launch a call; its bits, through the public entry and through the
+    wrapper, equal the plain version's on the host.  An empty m or n
+    launches nothing, and the slice kernel B6 is never taken."""
+    from exblas_tpu_torch.ops.exgemm import plan_gemm
+    from exblas_tpu_torch.ops.kernels import gemm_kernel as gk
+    from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
+
+    before = gk.gemm_bits_cuda.launches, gm.gemm_bits_mxu_cuda.launches
+    c_host = torch.arange(15.0, dtype=torch.float64).reshape(5, 3) - 4.0
+    cases = b5_calls = 0
+    for m, k, n in ((5, 0, 3), (0, 4, 3), (5, 4, 0)):
+        a = torch.zeros((m, k), dtype=torch.float64)
+        b = torch.zeros((k, n), dtype=torch.float64)
+        for beta in (0.0, 1.0, 2.0, math.inf):
+            for c in (c_host[:m, :n], None):
+                want = xt.exgemm_bits("N", "N", 1.0, a, b, beta, c)
+                got = xt.exgemm_bits("N", "N", 1.0, a.cuda(), b.cuda(), beta,
+                                     None if c is None else c.cuda())
+                mode = ("zero" if beta == 0.0 or c is None else
+                        "one" if beta == 1.0 else "general")
+                bb = s64(beta)
+                ab, b_b = a.view(torch.int64), b.view(torch.int64)
+                cb = (torch.zeros((m, n), dtype=torch.int64) if c is None
+                      else c.contiguous().view(torch.int64))
+                plain = gk.gemm_bits_torch(ab, b_b, cb, bb, mode)
+                kern = gk.gemm_bits_cuda(ab.cuda(), b_b.cuda(), cb.cuda(),
+                                         bb, mode)
+                if (got.device.type != "cuda"
+                        or not torch.equal(got.cpu(), want)
+                        or not torch.equal(kern.cpu(), plain)
+                        or not torch.equal(plain, want.reshape(m, n))):
+                    raise AssertionError(f"exgemm ({m}, {k}, {n}) beta "
+                                         f"{beta} c {c is not None}: "
+                                         f"{got} / {kern} != {want}")
+                if plan_gemm(ab, b_b, cb, bb, mode).rung is not None:
+                    raise AssertionError(f"exgemm ({m}, {k}, {n}): a rung")
+                cases += 1
+                b5_calls += 2 * (m * n > 0)
+    after = gk.gemm_bits_cuda.launches, gm.gemm_bits_mxu_cuda.launches
+    if (after[0] - before[0], after[1] - before[1]) != (b5_calls, 0):
+        raise AssertionError(f"exgemm on an empty dimension: launches "
+                             f"{before} -> {after}, want {b5_calls} of B5 "
+                             "and none of B6")
+    log(f"exgemm on an empty m, n or k: {cases} cases (beta 0, 1, 2, inf, "
+        "with and without C) bit-equal to the plain path on the host; B5 "
+        f"launched {b5_calls} times at k = 0 (public entry and wrapper), "
+        "nothing at m or n = 0")
 
 
 MXU_KERNELS = {
@@ -2721,6 +2790,301 @@ def phase_trsv_timing(xt, smi: str, bench) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The application studies (exblas_tpu_torch.apps) at the repo's own sizes
+# ---------------------------------------------------------------------------
+
+N_RNG = N_BIG                        # rng_sum: elements
+M_SPMV, NNZ_SPMV = 1 << 18, 32       # spmv: rows, nonzeros a row
+N_GRID, CELLS_GRID = 1 << 22, 1 << 16  # gridding: samples, cells
+# k-means: benchmarks/bench_kmeans.py's shape (points, features, clusters)
+N_KM, NF_KM, K_KM = 1 << 20, 32, 64
+
+
+def fraction_dot(a: np.ndarray, b: np.ndarray) -> float:
+    """The correctly rounded dot of finite a and b, by Fraction
+    arithmetic (int true division rounds correctly)."""
+    from fractions import Fraction
+
+    return float(sum(Fraction(float(u)) * Fraction(float(v))
+                     for u, v in zip(a, b)))
+
+
+def host_split(fn, reps: int = 7) -> dict:
+    """Per call: its CUDA-event time, and the host-clock time until the
+    call returns (its launches enqueued); then one call under
+    ``torch.profiler``: its kernels, their summed device time, and the
+    host waits on the device in it (synchronize calls and device-to-host
+    copies).  Where the device is busy for a small share of the event
+    time, the host's launch chain sets the pace, not the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    ev, enq = [], []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        fn()
+        enq.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        torch.cuda.synchronize()
+        ev.append(e0.elapsed_time(e1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    kernels, busy_us, waits = 0, 0.0, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if "Memcpy DtoH" in e.name:
+                waits.append(e.name)
+            elif "Memcpy" not in e.name and "Memset" not in e.name:
+                kernels += 1
+                busy_us += e.time_range.elapsed_us()
+        elif "Synchronize" in e.name:
+            waits.append(e.name)
+    return {"event_ms": ev, "enqueue_ms": enq, "kernels": kernels,
+            "busy_ms": busy_us / 1e3, "waits": sorted(set(waits)),
+            "n_waits": len(waits)}
+
+
+def check_utils_on_card() -> None:
+    """The timing and profiling utilities on CUDA tensors: ``bench_min``
+    synchronizes the output's device, ``amortized_seconds`` times with
+    CUDA events, and ``trace`` writes a Chrome trace with the ``annotate``
+    span (under build/, which git ignores)."""
+    import pathlib
+    import shutil
+
+    from exblas_tpu_torch.utils import bench_utils, profiling, timing
+
+    x = torch.ones(1 << 20, dtype=torch.float64, device="cuda")
+    best, out = timing.bench_min(torch.sum, x, iters=3)
+    if not (best > 0 and out.item() == float(1 << 20)):
+        raise AssertionError(f"bench_min on the card: {best}, {out}")
+    t = bench_utils.amortized_seconds(
+        lambda R: (lambda v: [v.sum() for _ in range(R)]), (x,), R=4)
+    if not t > 0:
+        raise AssertionError(f"amortized_seconds on the card: {t}")
+    log_dir = pathlib.Path(__file__).resolve().parent / "build" / "trace"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    with profiling.trace(str(log_dir)):
+        with profiling.annotate("exblas_card_span"):
+            x.sum().item()
+    files = list(log_dir.glob("*.pt.trace.json"))
+    if len(files) != 1 or "exblas_card_span" not in files[0].read_text():
+        raise AssertionError(f"trace on the card wrote {files}")
+    log(f"utils on the card: bench_min {best * 1e3:.4f} ms, "
+        f"amortized_seconds {t * 1e3:.4f} ms a call, trace "
+        f"{files[0].stat().st_size} bytes with the annotate span")
+
+
+def phase_apps(xt, smi: str) -> tuple[dict, dict]:
+    """The four application studies on the card through the port's app
+    functions, at the repo's sizes: rng_sum (n = 2^24, 4 shuffled repeats
+    of 2-15 random parts, and one partition with a part below and one
+    above the ladder's 2^20), spmv (2^18 rows of 32 nonzeros, 3 repeats
+    with the nnz order permuted), gridding (2^22 complex samples into 2^16
+    cells, 3 shuffles) and the device k-means (bench_kmeans's 2^20 x 32
+    points, 64 clusters, 3 iterations, two shuffles), each against exact
+    host values; then each reproducible call timed beside a float64
+    PyTorch control.  Returns the kernel launches of the apps' run (the
+    counts set to 0 just before it) and the times."""
+    from exblas_tpu_torch.apps import gridding, kmeans, rng_sum, spmv
+    from exblas_tpu_torch.ops.exsum import exsum_segmented_bits
+
+    t_phase = time.perf_counter()
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+
+    # rng_sum: the experiment, then a fixed partition across the ladder's
+    # threshold, both against math.fsum of the experiment's data
+    r = rng_sum.rng_sum_experiment(n=N_RNG, repeats=4, seed=SEED)
+    rs = np.random.RandomState(SEED)
+    x = rs.uniform(-1, 1, N_RNG) * np.exp2(rs.randint(-30, 30, N_RNG))
+    fs = math.fsum(x.tolist())
+    if not (r["repro_unique"] == 1 and r["repro_equals_single_pass"]
+            and f64_bits(r["value"]) == f64_bits(fs)):
+        raise AssertionError(f"rng_sum n={N_RNG}: {r}, fsum {fs!r}")
+    xd = torch.from_numpy(x).cuda()
+    parts = [xd[(1 << 19) + 5:], xd[:(1 << 19) + 5]]
+    before = {k: w.launches for k, w in sum_dot_wrappers().items()}
+    v = rng_sum._exsum_parts(parts)
+    delta = launch_delta(before)
+    if f64_bits(v) != f64_bits(fs) or not (
+            delta.get("exsum_acc_cuda") and delta.get("sum_flat_cuda")):
+        raise AssertionError(f"rng_sum parts {[len(p) for p in parts]}: "
+                             f"{v!r} (fsum {fs!r}), launches {delta}")
+    log(f"apps rng_sum n={N_RNG}: {r}; equal to math.fsum; partition "
+        f"{[len(p) for p in parts]} launched {delta}, equal to math.fsum")
+    with uncounted():
+        empty = xt.exsum_acc(xd[:0])
+        if int(torch.count_nonzero(empty.limbs)) or xt.exsum(xd[:0]) != 0.0:
+            raise AssertionError("exsum_acc of an empty part is not zero")
+
+    # spmv: the columns of a row distinct (a start and 32 increments whose
+    # sum stays below m), made vectorized
+    rs = np.random.RandomState(SEED + 1)
+    m, nnz = M_SPMV, NNZ_SPMV
+    vals = rs.uniform(-1, 1, (m, nnz)) * np.exp2(rs.randint(-25, 25,
+                                                            (m, nnz)))
+    cols = (rs.randint(0, m, (m, 1))
+            + np.cumsum(rs.randint(1, m // nnz, (m, nnz)), axis=1)) % m
+    xv = rs.uniform(-1, 1, m) * np.exp2(rs.randint(-25, 25, m))
+    outs = []
+    for _ in range(3):
+        perm = rs.permutation(nnz)
+        outs.append(spmv.spmv_repro(vals[:, perm], cols[:, perm], xv))
+    if len({o.tobytes() for o in outs}) != 1:
+        raise AssertionError("spmv: the repeats differ")
+    y = outs[0]
+    rows = rs.choice(m, 256, replace=False)
+    for i in rows:
+        want = fraction_dot(vals[i], xv[cols[i]])
+        if f64_bits(y[i]) != f64_bits(want):
+            raise AssertionError(f"spmv row {i}: {y[i]!r} != {want!r}")
+    host = spmv.spmv_repro(vals[:4096], cols[:4096], xv, device="cpu")
+    if host.tobytes() != y[:4096].tobytes():
+        raise AssertionError("spmv: the card differs from the host path")
+    log(f"apps spmv m={m} nnz={nnz}: 3 permuted repeats bit-equal, 256 rows "
+        "equal to Fraction dots, the first 4096 rows equal to the plain "
+        "path on the host CPU")
+
+    # gridding
+    rs = np.random.RandomState(SEED + 2)
+    cells = rs.randint(0, CELLS_GRID, N_GRID)
+    mag = np.exp2(rs.randint(-25, 25, N_GRID).astype(np.float64))
+    values = (rs.uniform(-1, 1, N_GRID) * mag
+              + 1j * rs.uniform(-1, 1, N_GRID) * mag)
+    outs = []
+    for _ in range(3):
+        perm = rs.permutation(N_GRID)
+        outs.append(gridding.grid_repro(cells[perm], values[perm],
+                                        CELLS_GRID))
+    if len({o.tobytes() for o in outs}) != 1:
+        raise AssertionError("gridding: the shuffles differ")
+    g = outs[0]
+    for c in rs.choice(CELLS_GRID, 64, replace=False):
+        members = values[cells == c]
+        want = (math.fsum(members.real.tolist()),
+                math.fsum(members.imag.tolist()))
+        if (f64_bits(g[c].real), f64_bits(g[c].imag)) != tuple(
+                map(f64_bits, want)):
+            raise AssertionError(f"gridding cell {c}: {g[c]!r} != {want}")
+    log(f"apps gridding {N_GRID} samples into {CELLS_GRID} cells: 3 "
+        "shuffles bit-equal, 64 cells equal to math.fsum of their real and "
+        "imaginary parts")
+
+    # k-means on the device
+    rs = np.random.RandomState(SEED + 3)
+    pts = rs.uniform(-1, 1, (N_KM, NF_KM)) * np.exp2(
+        rs.randint(-8, 8, (N_KM, NF_KM)))
+    init = pts[:K_KM].copy()
+    centers, mem = kmeans.kmeans_device(pts, K_KM, iters=3, init=init)
+    for _ in range(2):
+        perm = rs.permutation(N_KM)
+        c2, m2 = kmeans.kmeans_device(pts[perm], K_KM, iters=3, init=init)
+        if (c2.tobytes() != centers.tobytes()
+                or not np.array_equal(m2[np.argsort(perm)], mem)):
+            raise AssertionError("kmeans_device: a shuffle differs")
+    order = np.argsort(mem, kind="stable")
+    counts = np.bincount(mem, minlength=K_KM)
+    ends = np.cumsum(counts)
+    for c in range(K_KM):
+        cols_c = pts[order[ends[c] - counts[c]:ends[c]]].T.tolist()
+        for f in range(NF_KM):
+            want = (math.fsum(cols_c[f]) / counts[c]) if counts[c] else 0.0
+            if f64_bits(centers[c, f]) != f64_bits(want):
+                raise AssertionError(f"kmeans center ({c}, {f}): "
+                                     f"{centers[c, f]!r} != {want!r}")
+    log(f"apps kmeans_device n={N_KM} nf={NF_KM} k={K_KM}, 3 iterations: 2 "
+        "shuffles give the same center bits and membership; every center "
+        f"equals math.fsum(members) / count ({int((counts == 0).sum())} "
+        "empty clusters)")
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log("launches on the apps' path (all four apps):",
+        {k: v for k, v in launches.items() if v})
+    if not (launches["exsum_acc_cuda"] and launches["sum_flat_cuda"]):
+        raise AssertionError("the apps' path never launched B2a or B11")
+
+    # times: each reproducible call beside a float64 PyTorch control
+    tm, spread = {}, {}
+    with uncounted():
+        tm["rng_sum"] = time_ms(lambda: rng_sum._exsum_parts(parts), reps=5,
+                                inner=1)
+        spread["rng_sum"] = host_split(lambda: rng_sum._exsum_parts(parts))
+        tm["rng_sum_ctl"] = time_ms(
+            lambda: float(sum(p.sum() for p in parts)), reps=5, inner=1)
+        vd, cd, xvd = (torch.from_numpy(a).cuda() for a in (vals, cols, xv))
+        tm["spmv"] = time_ms(lambda: spmv._rows_dot_exact(vd, xvd[cd]),
+                             reps=3, inner=1)
+        spread["spmv"] = host_split(lambda: spmv._rows_dot_exact(vd,
+                                                                 xvd[cd]))
+        tm["spmv_ctl"] = time_ms(lambda: (vd * xvd[cd]).sum(1))
+        ids = torch.from_numpy(cells).cuda()
+        re = torch.from_numpy(values.real.copy()).cuda()
+        im = torch.from_numpy(values.imag.copy()).cuda()
+        def grid():
+            return (exsum_segmented_bits(re.view(torch.int64), ids,
+                                         CELLS_GRID),
+                    exsum_segmented_bits(im.view(torch.int64), ids,
+                                         CELLS_GRID))
+
+        tm["grid"] = time_ms(grid, reps=7, inner=1)
+        spread["grid"] = host_split(grid)
+        zeros = torch.zeros(CELLS_GRID, dtype=torch.float64, device="cuda")
+        tm["grid_ctl"] = time_ms(lambda: (
+            zeros.clone().index_add_(0, ids, re),
+            zeros.clone().index_add_(0, ids, im)))
+        pd, cen = (torch.from_numpy(a).cuda() for a in (pts, centers))
+        tm["km_step"] = time_ms(lambda: kmeans.kmeans_step_device(pd, cen,
+                                                                  K_KM),
+                                reps=3, inner=1)
+        md = torch.from_numpy(mem).cuda().long()
+        seg = (md[:, None] * NF_KM
+               + torch.arange(NF_KM, device="cuda")[None, :]).reshape(-1)
+        def km_update():
+            return exsum_segmented_bits(pd.view(torch.int64), seg,
+                                        K_KM * NF_KM)
+
+        tm["km_update"] = time_ms(km_update, reps=7, inner=1)
+        spread["km_update"] = host_split(km_update)
+        kz = torch.zeros((K_KM, NF_KM), dtype=torch.float64, device="cuda")
+        tm["km_ctl"] = time_ms(lambda: kz.clone().index_add_(0, md, pd))
+    log(f"time apps [{smi}] (CUDA events, median):")
+    log(f"  rng_sum parts {[len(p) for p in parts]}: exact (B11 + B2a, "
+        f"merge, rounding) {tm['rng_sum']:.4f} ms; float64 control torch.sum "
+        f"over the parts {tm['rng_sum_ctl']:.4f} ms")
+    log(f"  spmv m={m} nnz={nnz}: exact rows (gather, dot_rows_acc, "
+        f"round_rows) {tm['spmv']:.4f} ms; float64 control "
+        f"(vals * x[cols]).sum(1) {tm['spmv_ctl']:.4f} ms")
+    log(f"  gridding {N_GRID} -> {CELLS_GRID}: two exsum_segmented_bits "
+        f"passes {tm['grid']:.4f} ms; float64 control index_add_ x2 "
+        f"{tm['grid_ctl']:.4f} ms")
+    log(f"  kmeans n={N_KM} nf={NF_KM} k={K_KM}: kmeans_step_device "
+        f"{tm['km_step']:.4f} ms, of which the exact update "
+        f"(exsum_segmented_bits of {N_KM * NF_KM} elements into "
+        f"{K_KM * NF_KM} segments) {tm['km_update']:.4f} ms; float64 "
+        f"control index_add_ {tm['km_ctl']:.4f} ms")
+    for name, sp in spread.items():
+        med = statistics.median(sp["event_ms"])
+        log(f"  {name} over {len(sp['event_ms'])} calls: event ms min "
+            f"{min(sp['event_ms']):.4f} median {med:.4f} max "
+            f"{max(sp['event_ms']):.4f}; host enqueue ms median "
+            f"{statistics.median(sp['enqueue_ms']):.4f}; one profiled "
+            f"call: {sp['kernels']} kernels, device busy "
+            f"{sp['busy_ms']:.4f} ms ({100 * sp['busy_ms'] / med:.1f}% of "
+            f"the median), {sp['n_waits']} host waits {sp['waits']}")
+    check_utils_on_card()
+    log(f"apps phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, tm
+
+
+# ---------------------------------------------------------------------------
 # Summary
 # ---------------------------------------------------------------------------
 
@@ -2787,7 +3151,7 @@ PHASES = ("kernels", "fast_kernels", "public_api", "gemm_kernels",
           "gemm_public", "gemv_kernels", "gemv_public", "rowdot_kernels",
           "trsv_kernels",
           "trsv_public", "timing", "fast_timing", "gemm_timing",
-          "gemv_timing", "trsv_timing")
+          "gemv_timing", "trsv_timing", "apps")
 
 
 def run_only(xt, smi: str, names: list[str]) -> None:
@@ -2821,6 +3185,7 @@ def run_only(xt, smi: str, names: list[str]) -> None:
         "gemm_timing": lambda: phase_gemm_timing(xt, smi, bench("gemm")),
         "gemv_timing": lambda: phase_gemv_timing(xt, smi, bench("gemv")),
         "trsv_timing": lambda: phase_trsv_timing(xt, smi, bench("trsv")),
+        "apps": lambda: phase_apps(xt, smi),
     }
     for name in PHASES:
         if name in names:
@@ -2871,6 +3236,7 @@ def main() -> None:
     gemm_times = phase_gemm_timing(xt, smi, bench)
     gemv_times = phase_gemv_timing(xt, smi, gemv_bench)
     trsv_times = phase_trsv_timing(xt, smi, trsv_bench)
+    apps_launches, _ = phase_apps(xt, smi)
     summary = []
     for name, src, rep, bpe, lib in KERNELS:
         t_k, t_p, t_n = times[name]
@@ -2893,6 +3259,8 @@ def main() -> None:
                 "name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name], **kernel_times[name]})
+    for entry in summary:
+        entry["apps_launches"] = apps_launches.get(entry["name"], 0)
     log(f"chip_smoke seconds {time.perf_counter() - t0:.1f}")
     log(smi)
     log(json.dumps({"kernels": summary}))

@@ -16,7 +16,8 @@ Importing the package configures nothing global and imports no JAX.
 
 from . import core
 from .ops import (exdot, exdot_acc, exdot_bits, exgemm, exgemm_bits, exgemv,
-                  exgemv_bits, exsum, exsum_acc, exsum_bits, extrsv,
+                  exgemv_bits, exsum, exsum_acc, exsum_bits,
+                  exsum_segmented, exsum_segmented_bits, extrsv,
                   extrsv_bits)
 from .utils.generators import (
     init_fpuniform,
@@ -36,6 +37,8 @@ __all__ = [
     "exsum",
     "exsum_acc",
     "exsum_bits",
+    "exsum_segmented",
+    "exsum_segmented_bits",
     "exdot",
     "exdot_acc",
     "exdot_bits",

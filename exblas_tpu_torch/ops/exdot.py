@@ -21,7 +21,7 @@ import torch
 from ..core.accumulator import to_int32_limbs
 from ..core.rounding import bits_to_float
 from ..core.types import DOT_FORMAT, N_SPECIAL, Superacc
-from .exsum import _validate_fpe, as_f64_vector, resolve_impl, target_device
+from .exsum import _validate_fpe, as_f64_slice, resolve_impl, target_device
 from .kernels import dot_kernel, dot_mxu
 from .kernels.dot_mxu import MAX_N_DOT_MXU, WINDOW
 from .kernels.sum_mxu import (_ANCHOR_SLACK, device_anchor, exact_anchor,
@@ -109,12 +109,13 @@ _exdot_acc_mxu_auto.route = ()
 def _operands(a, b, inca, offseta, incb, offsetb, fpe, device):
     _validate_fpe(fpe, "exdot")
     dev = target_device(a, b, device=device)
-    a = as_f64_vector(a, inca, offseta, dev)
-    b = as_f64_vector(b, incb, offsetb, dev)
+    # the sliced N-D shapes must agree, as in the JAX package
+    a = as_f64_slice(a, inca, offseta, dev)
+    b = as_f64_slice(b, incb, offsetb, dev)
     if a.shape != b.shape:
         raise ValueError(f"exdot: shape mismatch {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
-    return a, b
+    return a.reshape(-1).contiguous(), b.reshape(-1).contiguous()
 
 
 def exdot_acc(a, b, inca: int = 1, offseta: int = 0, incb: int = 1,

@@ -155,8 +155,9 @@ class GemmPlan:
 
 def plan_gemm(z_bits, b_bits, c_bits, beta_bits: int,
               beta_mode: str) -> GemmPlan:
-    """The route of one ExGEMM call (see module doc)."""
-    if z_bits.shape[1] > MXU_K_CAP:
+    """The route of one ExGEMM call (see module doc).  An empty m, n or k
+    takes the exact route, which gives the rounded beta*C alone."""
+    if 0 in (*z_bits.shape, b_bits.shape[1]) or z_bits.shape[1] > MXU_K_CAP:
         return GemmPlan(rung=None)
     ea, fb, spread_a, spread_b, has_special_zb = analyze_gemm_operands(
         z_bits, b_bits)

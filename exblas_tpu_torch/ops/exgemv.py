@@ -85,10 +85,34 @@ def gemm_acc(z_bits, b_bits):
 
 
 def dot_rows_acc(a_bits, z_bits):
-    """Exact per-row dot accumulators of a (m, k) against z (k,), int64
-    bits: limbs int64 (m, L) in DOT_FORMAT and special counts int64
-    (m, 3) -- :func:`gemm_acc` with one column."""
-    return gemm_acc(a_bits, z_bits[:, None])
+    """Exact per-row dot accumulators of a (m, k) against z, int64 bits:
+    limbs int64 (m, L) in DOT_FORMAT and special counts int64 (m, 3).  A
+    z of shape (k,) is one vector for every row (:func:`gemm_acc` with
+    one column); a z of shape (m, k) gives each row its own, as the JAX
+    package's ``dot_rows_acc_xla`` takes it (the row dots of SpMV): the
+    element-wise products are deposited into their rows, about
+    ``PRODUCTS_PER_PASS`` at a time."""
+    if z_bits.dim() == 1:
+        return gemm_acc(a_bits, z_bits[:, None])
+    m, k = a_bits.shape
+    if tuple(z_bits.shape) != (m, k):
+        raise ValueError(f"dot_rows_acc: z of shape {tuple(z_bits.shape)} "
+                         f"for rows of shape {(m, k)}")
+    check_n_terms(k, MAX_DOT_TERMS)
+    dev = a_bits.device
+    limbs = torch.zeros(m * L_DOT, dtype=torch.int64, device=dev)
+    special = torch.zeros((m, N_SPECIAL), dtype=torch.int64, device=dev)
+    rc = max(1, PRODUCTS_PER_PASS // max(1, k))
+    for r0 in range(0, m, rc):
+        rows = slice(r0, r0 + rc)
+        t = dep.product_terms(a_bits[rows], z_bits[rows],
+                              DOT_FORMAT.offset_bits)
+        seg = torch.arange(r0, min(m, r0 + rc), device=dev)[:, None] * L_DOT
+        dep.segment_deposit_products(limbs, t, seg)
+        special[rows] += torch.stack([t[s].sum(dim=1)
+                                      for s in ("nan", "pinf", "ninf")],
+                                     dim=-1)
+    return limbs.view(m, L_DOT), special
 
 
 def deposit_terms_rows(limbs, special, bits):

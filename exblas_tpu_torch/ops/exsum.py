@@ -22,6 +22,11 @@ Routes, as in the JAX package (``exblas_tpu/ops/exsum.py``): for
 ``_SUM_MXU_MIN <= n <= MAX_N_MXU`` the anchored-window ladder
 (:func:`_exsum_bits_mxu_auto`, kernels B11 and B3), otherwise the exact
 kernel B2 (``sum_kernel.py``); under both implementations alike.
+
+:func:`exsum_segmented` (and its tensor twin
+:func:`exsum_segmented_bits`) sums many segments at once.  The JAX
+package runs it in XLA (``segment_sum``), with no Pallas kernel, so it is
+plain PyTorch on both devices here.
 """
 
 from __future__ import annotations
@@ -29,14 +34,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import deposit as dep
 from ..core.accumulator import to_int32_limbs
-from ..core.rounding import bits_to_float
+from ..core.ieee import f64_bits
+from ..core.rounding import (apply_specials, bits_to_float,
+                             canonicalize_digits, round_digits_to_f64_bits)
 from ..core.types import N_SPECIAL, SUM_FORMAT, Superacc
 from .kernels import sum_kernel, sum_mxu
 from .kernels.sum_mxu import (_ANCHOR_SLACK, MAX_N_MXU, device_anchor,
                               exact_anchor, resolve_anchor, sample_anchor)
 
-__all__ = ["exsum", "exsum_acc", "exsum_bits"]
+__all__ = ["exsum", "exsum_acc", "exsum_bits", "exsum_segmented",
+           "exsum_segmented_bits"]
 
 # The JAX package's threshold for the anchored ladder (``exsum.py:46-49``),
 # kept so that both packages route alike; PERF.md records the ladder
@@ -97,16 +106,22 @@ def as_f64(x, device: torch.device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.float64)
 
 
-def as_f64_vector(x, inc: int, offset: int,
-                  device: torch.device) -> torch.Tensor:
+def as_f64_slice(x, inc: int, offset: int,
+                 device: torch.device) -> torch.Tensor:
     """``x[offset::inc]`` by numpy's slicing rules (a negative ``inc`` or
-    ``offset`` included) as a contiguous 1-D float64 tensor on
-    ``device``."""
-    x = as_f64(x, device).reshape(-1)
+    ``offset`` included), on the first axis of an N-D ``x`` as numpy and
+    the JAX package slice it, as a float64 tensor on ``device``."""
+    x = as_f64(x, device)
     if offset or inc != 1:
         r = range(x.shape[0])[offset::inc]
         x = x[torch.arange(r.start, r.stop, r.step, device=x.device)]
-    return x.contiguous()
+    return x
+
+
+def as_f64_vector(x, inc: int, offset: int,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`as_f64_slice`, flattened to a contiguous 1-D tensor."""
+    return as_f64_slice(x, inc, offset, device).reshape(-1).contiguous()
 
 
 def _use_ladder(n: int) -> bool:
@@ -219,3 +234,70 @@ def exsum(x, inca: int = 1, offset: int = 0, fpe: int = 2,
     return bits_to_float(exsum_bits(x, inca=inca, offset=offset, fpe=fpe,
                                     early_exit=early_exit, impl=impl,
                                     device=device))
+
+
+# Elements one pass of :func:`exsum_segmented_bits` decomposes at once:
+# bounds its temporaries (about 200 bytes an element).
+SEGMENT_CHUNK = 1 << 22
+
+
+def exsum_segmented_bits(x_bits, segment_ids,
+                         num_segments: int) -> torch.Tensor:
+    """Per-segment exact sums of int64 binary64 patterns -> int64 bits
+    (num_segments,) on ``x_bits``' device: ``out[s]`` is the correctly
+    rounded sum of ``x[segment_ids == s]``.  ``x_bits`` and the ids
+    (tensors on one device) are flattened.  Ids outside
+    ``[0, num_segments)`` are dropped, as ``jax.ops.segment_sum`` drops
+    them; an empty segment gives +0.  Each element's four limb deposits go
+    into (num_segments * 112) int64 limbs by ``index_add_`` (integer
+    atomics on a card: exact in any order), a chunk of elements at a
+    time; its specials are counted per segment and override the rounding
+    in the JAX package's order."""
+    if x_bits.dtype != torch.int64:
+        raise TypeError(f"exsum_segmented_bits: expected int64 bit "
+                        f"patterns, got {x_bits.dtype}")
+    L = SUM_FORMAT.n_limbs
+    bits = x_bits.reshape(-1)
+    seg = segment_ids.reshape(-1).to(device=bits.device, dtype=torch.int64)
+    if seg.shape != bits.shape:
+        raise ValueError(f"exsum_segmented: {bits.numel()} values but "
+                         f"{seg.numel()} segment ids")
+    if num_segments == 0:
+        return torch.zeros(0, dtype=torch.int64, device=bits.device)
+    limbs = torch.zeros(num_segments * L, dtype=torch.int64,
+                        device=bits.device)
+    special = torch.zeros((num_segments, N_SPECIAL), dtype=torch.int64,
+                          device=bits.device)
+    offs = torch.arange(4, device=bits.device)[:, None]
+    for i in range(0, bits.numel(), SEGMENT_CHUNK):
+        s = seg[i:i + SEGMENT_CHUNK]
+        # masked before the deposits: index_add_ raises on an id out of
+        # range on the CPU, and a card would write out of bounds
+        keep = (s >= 0) & (s < num_segments)
+        s = torch.where(keep, s, 0)
+        t = dep.sum_terms(bits[i:i + SEGMENT_CHUNK], SUM_FORMAT.offset_bits)
+        pieces = torch.stack(t["pieces"]) * keep
+        limbs.index_add_(0, (s * L + t["q"] + offs).reshape(-1),
+                         pieces.reshape(-1))
+        special.index_add_(0, s, torch.stack(
+            [t["nan"], t["pinf"], t["ninf"]], dim=-1) * keep[:, None])
+    digits, negative = canonicalize_digits(limbs.view(num_segments, L))
+    bits_out = round_digits_to_f64_bits(digits, negative, SUM_FORMAT)
+    return apply_specials(bits_out, special)
+
+
+def exsum_segmented(x, segment_ids, num_segments: int,
+                    device=None) -> np.ndarray:
+    """Reproducible, correctly rounded per-segment sums in one batched pass
+    -> a numpy float64 array of length ``num_segments``.
+
+    ``out[s] = exsum(x[segment_ids == s])`` for every segment at once: the
+    batched building block of the application studies (``apps/``).  Exact
+    deposits make the result independent of element order and of the
+    segment layout.  Devices follow the module's rule."""
+    dev = target_device(x, segment_ids, device=device)
+    if not isinstance(segment_ids, torch.Tensor):
+        segment_ids = torch.from_numpy(np.asarray(segment_ids, np.int64))
+    bits = exsum_segmented_bits(f64_bits(as_f64(x, dev)),
+                                segment_ids.to(dev), int(num_segments))
+    return bits.cpu().numpy().view(np.float64)

@@ -9,7 +9,8 @@ job the row helper ``_apply_beta_rows`` of ``ops/exgemv.py`` does here):
 * :func:`gemm_bits_cuda` -- for each (i, j) the exact sum of the 106-bit
   products ``z[i,k] * b[k,j]`` plus the exact ``beta * c[i,j]``, every
   element rounded once on the device, NaN/Inf counted as in
-  ``core/deposit.py``.  Any data.  It is the fallback of the slice kernel
+  ``core/deposit.py``.  Any data, k = 0 included (no products: the
+  epilogue rounds beta * c alone).  It is the fallback of the slice kernel
   (``gemm_mxu.py``) and the only route beyond its coverage.
 * :func:`gemm_bits_torch` -- the plain version: the O(m k n) deposit of
   ``gemm_acc``, the beta term of ``_apply_beta_rows``, then

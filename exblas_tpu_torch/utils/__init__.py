@@ -1,1 +1,3 @@
-"""Utilities: seeded test-input generators."""
+"""Utilities: seeded test-input generators (``generators``), min-of-k and
+amortized timing (``timing``, ``bench_utils``) and traces
+(``profiling``)."""

@@ -226,3 +226,43 @@ def test_dot_baseline_is_native():
     a, b = CASES[3][1](100)
     assert dot_baseline(_t(a), _t(b)) == float(torch.dot(_t(a), _t(b)))
     assert dot_baseline(a, b, device="cpu") == float(torch.dot(_t(a), _t(b)))
+
+
+# N-D operands with inc/offset slice their first axis, as numpy and the
+# JAX package slice them, and their sliced shapes must agree (ROADMAP
+# queue C, C4).  Each (inc, offset) takes 4 of the 8 rows, so JAX compiles
+# one shape a rank.
+@pytest.mark.parametrize("shape", [(8, 5), (8, 3, 2)], ids=["2d", "3d"])
+@pytest.mark.parametrize("inc,offset", [(1, 4), (-1, 3), (2, 0), (2, 1),
+                                        (-2, -1), (-2, 6)])
+def test_exdot_nd_slices_first_axis_like_jax(shape, inc, offset):
+    import exblas_tpu as xb
+
+    n = int(np.prod(shape))
+    a = xt.init_fpuniform(n, 80, -40, seed=43).reshape(shape)
+    b = -xt.init_lognormal(n, 0.0, 3.0, seed=44).reshape(shape)
+    kw = dict(inca=inc, offseta=offset, incb=inc, offsetb=offset)
+    got = port_dot_bits(a, b, **kw)
+    assert_same_bits(got, jax_dot_bits(a, b, **kw), f"{shape} {kw} vs jax")
+    assert got == bits_of(exact_dot(a[offset::inc].reshape(-1),
+                                    b[offset::inc].reshape(-1)))
+    assert_same_state(port_state(xt.exdot_acc(_t(a), _t(b), **kw)),
+                      jax_state(xb.exdot_acc(a, b, impl="xla", **kw)),
+                      str(kw))
+
+
+def test_exdot_nd_shape_mismatch_raises_like_jax():
+    import exblas_tpu as xb
+
+    x = np.random.default_rng(0).standard_normal((4, 5))
+    assert xt.exdot(x, x, inca=2, incb=2, device="cpu") == 8.137457542453038
+    for args, kw in [((x, x.T.copy()), {}),
+                     ((x, x), dict(inca=2)),
+                     ((x[:, :4], x.reshape(5, 4)), {})]:
+        with pytest.raises(ValueError, match="shape mismatch"):
+            xb.exdot(*args, impl="xla", **kw)
+        with pytest.raises(ValueError, match="shape mismatch"):
+            xt.exdot(*args, device="cpu", **kw)
+    # equal element counts but other shapes: rejected on the host path too
+    with pytest.raises(ValueError, match="shape mismatch"):
+        xt.exdot_acc(_t(x), _t(x.reshape(2, 10)))

@@ -462,3 +462,40 @@ def test_gemm_cuda_wrappers_refuse_cpu_tensors():
         tmxu.gemm_bits_mxu_cuda(z, b, None, 0, "zero", 8, 8)
     assert before == (gemm_kernel.gemm_bits_cuda.launches,
                       tmxu.gemm_bits_mxu_cuda.launches)
+
+
+# --- empty m, n or k (ROADMAP queue C, C3) ---------------------------------
+
+C3_SHAPES = {"k0": (5, 0, 3), "m0": (0, 4, 3), "n0": (5, 4, 0)}
+
+
+@pytest.mark.parametrize("with_c", [True, False], ids=["c", "no_c"])
+@pytest.mark.parametrize("beta", [0.0, 1.0, 2.0, np.inf])
+@pytest.mark.parametrize("shape", list(C3_SHAPES))
+def test_exgemm_empty_dims_match_jax(shape, beta, with_c):
+    """An empty m, n or k gives JAX ``impl="xla"``'s result: the rounded
+    beta*C (zeros without C), or an empty (0, n) or (m, 0) array; the
+    plan takes the exact route, which needs no operand analysis."""
+    m, k, n = C3_SHAPES[shape]
+    a, b = np.zeros((m, k)), np.zeros((k, n))
+    c = np.arange(15.0).reshape(5, 3)[:m, :n] - 4.0 if with_c else None
+    want = jax_bits("N", "N", 1.0, a, b, beta, c)
+    got = port_bits("N", "N", 1.0, a, b, beta, c)
+    assert got.shape == want.shape == (m, n)
+    assert_bits(got, want, f"{shape} beta={beta}")
+    assert xt.exgemm("N", "N", 1.0, a, b, beta, c,
+                     device="cpu").shape == (m, n)
+    z = torch.zeros((m, k), dtype=torch.int64)
+    assert E.plan_gemm(z, torch.zeros((k, n), dtype=torch.int64), None, 0,
+                       "zero").rung is None
+
+
+def test_exgemm_k0_known_values():
+    """The values of the fault report: 2*C with C, zeros without."""
+    c = np.arange(15.0).reshape(5, 3)
+    got = xt.exgemm("N", "N", 1.0, np.zeros((5, 0)), np.zeros((0, 3)), 2.0,
+                    c, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), 2 * c)
+    got = xt.exgemm("N", "N", 1.0, np.zeros((5, 0)), np.zeros((0, 3)), 2.0,
+                    None, device="cpu")
+    assert got.shape == (5, 3) and (got.view(torch.int64) == 0).all()

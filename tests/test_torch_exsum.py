@@ -279,3 +279,38 @@ def test_cuda_wrapper_refuses_cpu_tensor():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         sum_kernel.exsum_bits_cuda(_t([1.0, 2.0]))
     assert sum_kernel.exsum_bits_cuda.launches == before
+
+
+# N-D input with inca/offset slices the first axis, as numpy and the JAX
+# package slice it, then sums every element (ROADMAP queue C, C4).  Each
+# (inca, offset) takes 4 of the 8 rows, so JAX compiles one shape a rank.
+ND_SLICES = [(1, 4), (-1, 3), (2, 0), (2, 1), (-2, -1), (-2, 6)]
+
+
+@pytest.mark.parametrize("shape", [(8, 5), (8, 3, 2)], ids=["2d", "3d"])
+@pytest.mark.parametrize("inca,offset", ND_SLICES)
+def test_exsum_nd_slices_first_axis_like_jax(shape, inca, offset):
+    import exblas_tpu as xb
+
+    x = xt.init_fpuniform(int(np.prod(shape)), 80, -40, seed=41).reshape(
+        shape) * np.where(np.random.RandomState(42).rand(*shape) < 0.5,
+                          -1.0, 1.0)
+    kw = dict(inca=inca, offset=offset)
+    got = port_sum_bits(x, **kw)
+    assert_same_bits(got, jax_sum_bits(x, **kw), f"{shape} {kw} vs jax")
+    assert_same_bits(got, np.float64(exact_sum(
+        x[offset::inca].reshape(-1))).view(np.uint64), "vs oracle")
+    assert_same_state(port_state(xt.exsum_acc(_t(x), **kw)),
+                      jax_state(xb.exsum_acc(x, impl="xla", **kw)), str(kw))
+    host = xt.exsum(x, parallel=False, **kw)
+    assert bits_of(host) == bits_of(xb.exsum(x, parallel=False, **kw))
+    assert bits_of(host) == got
+
+
+def test_exsum_nd_known_values():
+    """The values of the fault report (JAX's)."""
+    x = np.random.default_rng(0).standard_normal((4, 5))
+    assert xt.exsum(x, inca=2, device="cpu") == -4.1684031167772515
+    assert xt.exsum(x, offset=1, device="cpu") == -3.8668451008118403
+    assert xt.exsum(x, offset=1, parallel=False) == -3.8668451008118403
+    assert xt.exsum(x, device="cpu") == xt.exsum(x.reshape(-1), device="cpu")
