@@ -82,7 +82,13 @@ then times kernels, plain versions, the public ladders (with their host
 synchronizations) and the native float64 controls with CUDA events --
 B5 also on a 600-binade pair no rung covers and on signed data, B10 also
 split into the solver warp's phases a step beside an estimate of its
-chain -- and prints one JSON summary line per the contract below.  Any
+chain; runs the application studies (phase ``apps``); runs the mesh
+layer ``exblas_tpu_torch.parallel`` (phase ``parallel``) in worlds of
+processes spawned by ``tests/torch_dist.py`` -- one rank over NCCL, then
+two and four ranks over Gloo on CUDA tensors, all on this card -- where
+every sharded entry must give every rank the single-card entry's bits
+and each rank must launch the kernels its route names; and prints one
+JSON summary line per the contract below.  Any
 failure raises, so the script exits non-zero without the final line.  It
 also exits non-zero when no CUDA device is present.
 
@@ -98,6 +104,7 @@ Last line: {"ok": true, "device": {"platform": "gpu", "kind": ...,
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -3085,6 +3092,404 @@ def phase_apps(xt, smi: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# The mesh layer: worlds of processes on the card
+# ---------------------------------------------------------------------------
+
+# Worlds of the phase: one rank over NCCL, then two and four ranks over
+# Gloo on CUDA tensors (NCCL refuses two ranks on one card).
+PAR_WORLDS = (1, 2, 4)
+PAR_DIR = "build/parallel"         # the phase's data, saved once as .npy
+N_PAR_SUMS = (N_BIG, N_BIG + 3)
+N_GEMM_K = (512, 4096, 512)        # exgemm_sharded_k: m, k, n
+N_TRSV_SMALL = 2048                # the solve in worlds of 2 and 4
+# the four (uplo, trans) forms and an uneven unit solve: n in world 1,
+# and in worlds 2 and 4, whose owners' panel solves (about 5 ms a row,
+# host-bound) take turns on the one card
+TRSV_FORMS_PAR = {1: 300, 2: 64, 4: 64}
+PAR_2D = {1: ((1, 1),), 2: ((1, 2), (2, 1)), 4: ((1, 4), (2, 2), (4, 1))}
+
+Ref = collections.namedtuple("Ref", "name")  # an array of the phase's data
+
+
+def parallel_data(xt) -> dict:
+    """The phase's arrays, by name: the BLAS-1 bench data at 2^24 and
+    2^24 + 3 (narrow: a window tier; wide300: the exact tier), +Inf and
+    -Inf at the two ends of a short vector, the GEMV and GEMM bench
+    operands with a y, uneven shapes, exgemm_sharded_k's operands, and
+    the bounded TRSV data with its leading blocks."""
+    d = {}
+    for n in N_PAR_SUMS:
+        d[f"narrow_{n}"] = xt.init_fpuniform(n, 2, 0, seed=7)
+        d[f"narrow_b_{n}"] = xt.init_fpuniform(n, 2, 0, seed=8)
+    d["wide300"] = make_input(xt, "wide", N_BIG, SEED + 3)
+    d["wide300_b"] = make_input(xt, "wide", N_BIG, SEED + 4)
+    pm = np.ones(1003)
+    pm[0], pm[-1] = np.inf, -np.inf
+    d["sum_pm_inf"] = pm
+    d["gemv_a"], d["gemv_x"] = gemv_bench_data(xt, N_GEMV)
+    d["gemv_y"] = xt.init_fpuniform(N_GEMV, 10, 0, seed=3)
+    # 600 binades: no GEMV rung covers them, so row shards take B7
+    d["gemv_ua"] = xt.init_fpuniform_matrix(1001, 999, 600, -300, seed=4)
+    d["gemv_ux"] = xt.init_fpuniform(999, 600, -300, seed=5)
+    d["gemv_uy"] = xt.init_fpuniform(1001, 30, 0, seed=6)
+    d["gemm_a"], d["gemm_b"], d["gemm_c"] = gemm_bench_data(xt, N_GEMM)
+    m, k, n = N_GEMM_K
+    d["gemmk_a"] = xt.init_fpuniform_matrix(m, k, 10, 0, seed=11)
+    d["gemmk_b"] = xt.init_fpuniform_matrix(k, n, 10, 0, seed=12)
+    d["gemmk_c"] = xt.init_fpuniform_matrix(m, n, 10, 0, seed=13)
+    d["gemm_ua"] = xt.init_fpuniform_matrix(257, 300, 10, 0, seed=14)
+    d["gemm_ub"] = xt.init_fpuniform_matrix(300, 129, 10, 0, seed=15)
+    _, t, b = trsv_bench_data(xt, N_TRSV)
+    d["trsv_t"], d["trsv_b"] = t, b
+    s = N_TRSV_SMALL
+    d["trsv_t_small"] = np.ascontiguousarray(t[:s, :s])
+    d["trsv_b_small"] = b[:s].copy()
+    for f in set(TRSV_FORMS_PAR.values()):
+        d[f"trsv_l{f}"] = np.ascontiguousarray(t[:f, :f])
+        d[f"trsv_u{f}"] = np.ascontiguousarray(t[:f, :f].T)
+        d[f"trsv_b{f}"] = b[:f].copy()
+        d[f"trsv_l{f + 1}"] = np.ascontiguousarray(t[:f + 1, :f + 1])
+        d[f"trsv_b{f + 1}"] = b[:f + 1].copy()
+    return d
+
+
+def parallel_calls(world: int) -> list:
+    """The calls of a world: dicts of ``name`` (the logical call: one
+    result in every world and mesh shape), ``entry`` (of
+    ``exblas_tpu_torch.parallel``), ``args``, ``kwargs``, ``mesh`` (a
+    ``tests/torch_dist.py`` mesh spec) and ``ref`` (the single-card public
+    entry with its arguments); data by ``Ref``."""
+    calls = []
+
+    def add(name, entry, args, ref, mesh=("1d",), **kwargs):
+        calls.append(dict(name=name, entry=entry, args=args, kwargs=kwargs,
+                          mesh=mesh, ref=(*ref, {}) if len(ref) == 2
+                          else ref))
+
+    for a, b in [(f"narrow_{n}", f"narrow_b_{n}") for n in N_PAR_SUMS] + [
+            ("wide300", "wide300_b")]:
+        add(f"sum_{a}", "exsum_sharded", (Ref(a),), ("exsum_bits", (Ref(a),)))
+        ab = (Ref(a), Ref(b))
+        add(f"dot_{a}", "exdot_sharded", ab, ("exdot_bits", ab))
+    x = Ref("sum_pm_inf")
+    add("sum_pm_inf", "exsum_sharded", (x,), ("exsum_bits", (x,)))
+
+    a, xv, y = Ref("gemv_a"), Ref("gemv_x"), Ref("gemv_y")
+    for beta in (0.0, 1.0, -2.5):
+        for trans in ("N", "T"):
+            kw = dict(alpha=1.0, beta=beta, y=y if beta else None,
+                      trans=trans)
+            ref = ("exgemv_bits", (trans, 1.0, a, xv),
+                   dict(beta=beta, y=y if beta else None))
+            tag = f"{beta}_{trans}"
+            for shard in ("rows", "k"):
+                add(f"gemv_{tag}", "exgemv_sharded", (a, xv), ref,
+                    shard=shard, **kw)
+            for shape in PAR_2D[world]:
+                add(f"gemv_{tag}", "exgemv_sharded_2d", (a, xv), ref,
+                    mesh=("2d", shape, ("rows", "k")), **kw)
+    ua, ux, uy = Ref("gemv_ua"), Ref("gemv_ux"), Ref("gemv_uy")
+    kw = dict(alpha=-0.75, beta=-2.5, y=uy)
+    ref = ("exgemv_bits", ("N", -0.75, ua, ux), dict(beta=-2.5, y=uy))
+    for shard in ("rows", "k"):
+        add("gemv_uneven", "exgemv_sharded", (ua, ux), ref, shard=shard, **kw)
+    add("gemv_uneven", "exgemv_sharded_2d", (ua, ux), ref,
+        mesh=("2d", PAR_2D[world][-1], ("rows", "k")), **kw)
+
+    ga, gb, gc = Ref("gemm_a"), Ref("gemm_b"), Ref("gemm_c")
+    kw = dict(alpha=1.0, beta=1.0, c=gc)
+    ref = ("exgemm_bits", ("N", "N", 1.0, ga, gb), dict(beta=1.0, c=gc))
+    add("gemm", "exgemm_sharded", (ga, gb), ref, **kw)
+    for shape in PAR_2D[world]:
+        add("gemm", "exgemm_sharded_2d", (ga, gb), ref,
+            mesh=("2d", shape, ("rows", "cols")), **kw)
+    ka, kb, kc = Ref("gemmk_a"), Ref("gemmk_b"), Ref("gemmk_c")
+    add("gemm_k", "exgemm_sharded_k", (ka, kb),
+        ("exgemm_bits", ("N", "N", -0.5, ka, kb), dict(beta=2.5, c=kc)),
+        alpha=-0.5, beta=2.5, c=kc)
+    ua, ub = Ref("gemm_ua"), Ref("gemm_ub")
+    ref = ("exgemm_bits", ("N", "N", 3.0, ua, ub), dict(beta=0.0))
+    add("gemm_uneven", "exgemm_sharded", (ua, ub), ref, alpha=3.0)
+    add("gemm_uneven", "exgemm_sharded_2d", (ua, ub), ref, alpha=3.0,
+        mesh=("2d", PAR_2D[world][-1], ("rows", "cols")))
+    add("gemm_uneven", "exgemm_sharded_k", (ua, ub), ref, alpha=3.0)
+
+    for suffix in ("_small",) if world > 1 else ("",):
+        tb = (Ref("trsv_t" + suffix), Ref("trsv_b" + suffix))
+        add("trsv" + suffix, "extrsv_sharded", ("L", "N", "N", *tb),
+            ("extrsv_bits", ("L", "N", "N", *tb)))
+    f = TRSV_FORMS_PAR[world]
+    for uplo in ("L", "U"):
+        for trans in ("N", "T"):
+            args = (uplo, trans, "N", Ref(f"trsv_{uplo.lower()}{f}"),
+                    Ref(f"trsv_b{f}"))
+            add(f"trsv{f}_{uplo}{trans}", "extrsv_sharded", args,
+                ("extrsv_bits", args))
+    args = ("L", "N", "U", Ref(f"trsv_l{f + 1}"), Ref(f"trsv_b{f + 1}"))
+    add(f"trsv{f + 1}_unit", "extrsv_sharded", args, ("extrsv_bits", args))
+    return calls
+
+
+# The calls world 1 times, each sharded entry (and each GEMV shard)
+# beside its single-card entry, and those timed (1, 1): warm-up and one
+# call, each 0.4-10 s.
+PAR_TIMED = (f"sum_narrow_{N_BIG}", f"dot_narrow_{N_BIG}", "gemv_0.0_N",
+             "gemm", "gemm_k", "trsv")
+PAR_HEAVY = ("gemm", "gemm_k", "trsv")
+
+
+def _resolve(v, data):
+    return data[v.name] if isinstance(v, Ref) else v
+
+
+def _load_par_data(names, dev) -> dict:
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent / PAR_DIR
+    return {n: torch.from_numpy(np.load(root / f"{n}.npy")).to(dev)
+            for n in sorted(names)}
+
+
+def _par_names(calls, ref: bool = False) -> set:
+    """The data a list of calls reads (or their references read)."""
+    return {v.name for c in calls for v in (
+        (*c["ref"][1], *c["ref"][2].values()) if ref
+        else (*c["args"], *c["kwargs"].values())) if isinstance(v, Ref)}
+
+
+def _par_label(c: dict) -> str:
+    return " ".join([c["entry"], c["name"], *(
+        [c["kwargs"]["shard"]] if "shard" in c["kwargs"] else [])])
+
+
+def parallel_child(rank: int, world: int, calls: list, time_them: bool):
+    """One rank of a phase world: every call on this rank's card, with its
+    launches (the counts before and after it), the ladder route a sum or
+    dot took, and its bits; with ``time_them`` CUDA-event times of the
+    ``PAR_TIMED`` calls: the ``PAR_HEAVY`` ones (0.4-45 s a call) on the
+    checked call itself, the others over repeats that count towards no
+    call's launches."""
+    import torch_dist
+    from exblas_tpu_torch.ops.exdot import _exdot_acc_mxu_auto
+    from exblas_tpu_torch.ops.exsum import _exsum_acc_mxu_auto
+    from exblas_tpu_torch.ops.kernels import _build
+
+    _build.library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    data = _load_par_data(_par_names(calls), dev)
+    wrappers = all_wrappers()
+    meshes, out, times = {}, [], {}
+    for c in calls:
+        if c["mesh"] not in meshes:
+            meshes[c["mesh"]] = torch_dist.build_mesh(c["mesh"], world,
+                                                      "cuda")
+        mesh = meshes[c["mesh"]]
+        fn = torch_dist.entry(c["entry"])
+        args = [_resolve(v, data) for v in c["args"]]
+        kwargs = {k: _resolve(v, data) for k, v in c["kwargs"].items()}
+        timed = time_them and c["name"] in PAR_TIMED
+        _exsum_acc_mxu_auto.route = ()
+        _exdot_acc_mxu_auto.route = ()
+        before = {k: w.launches for k, w in wrappers.items()}
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        bits = fn(*args, mesh=mesh, **kwargs)
+        e1.record()
+        torch.cuda.synchronize()
+        launches = {k: w.launches - before[k] for k, w in wrappers.items()
+                    if w.launches != before[k]}
+        route = _exsum_acc_mxu_auto.route or _exdot_acc_mxu_auto.route
+        out.append(dict(name=c["name"], entry=c["entry"], mesh=c["mesh"],
+                        bits=bits.cpu().numpy(), launches=launches,
+                        route=route))
+        if timed and c["name"] in PAR_HEAVY:
+            times[_par_label(c)] = e0.elapsed_time(e1)
+        elif timed:
+            times[_par_label(c)] = time_ms(
+                lambda: fn(*args, mesh=mesh, **kwargs))
+    return dict(calls=out, times=times,
+                device=torch.cuda.get_device_name(dev),
+                backend=torch.distributed.get_backend())
+
+
+def parallel_refs(calls: list) -> tuple[dict, dict]:
+    """Each call name's single-card public entry on the card, as numpy
+    bits, and CUDA-event times of the ``PAR_TIMED`` ones."""
+    import exblas_tpu_torch as xt
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    data = _load_par_data(_par_names(calls, ref=True), dev)
+    refs, times = {}, {}
+    for c in calls:
+        if c["name"] in refs:
+            continue
+        name, args, kwargs = c["ref"]
+        fn = getattr(xt, name)
+        args = [_resolve(v, data) for v in args]
+        kwargs = {k: _resolve(v, data) for k, v in kwargs.items()}
+        refs[c["name"]] = fn(*args, **kwargs).cpu().numpy()
+        if c["name"] in PAR_TIMED:
+            times[f"{name} {c['name']}"] = time_ms(
+                lambda: fn(*args, **kwargs))
+    del data
+    torch.cuda.empty_cache()
+    return refs, times
+
+
+def expected_par_launches(c: dict, route: tuple, world: int, rank: int,
+                          n: int) -> dict:
+    """The launches one rank's call ``c`` must make: a sum or dot its ladder
+    ``route``'s (one window kernel a window pass, the exact kernel for the
+    exact tier), or the exact kernel alone below 2^20 elements a shard;
+    the GEMV rows a rank owns B8, then B9 (the bench data's rung (2, 2))
+    or B7 (600 binades, no rung); the k shard and the 2-D GEMV B7; each
+    GEMM block B5; the sharded solve of ``n`` rows B7 for each trailing
+    update of the rank's own panel solve and for each deposit into the
+    rank's rows; exgemm_sharded_k none (the plain gemm_acc)."""
+    from exblas_tpu_torch.ops.extrsv import _choose_block
+
+    e = c["entry"]
+    if e in ("exsum_sharded", "exdot_sharded"):
+        window, exact = (("sum_flat_cuda", "exsum_acc_cuda")
+                         if e == "exsum_sharded"
+                         else ("dot_flat_cuda", "exdot_acc_cuda"))
+        if not route:
+            return {exact: 1}
+        passes = sum(t != "exact" for t in route)
+        want = {window: passes, exact: int(route[-1] == "exact")}
+        return {k: v for k, v in want.items() if v}
+    if e == "exgemv_sharded" and c["kwargs"].get("shard", "rows") == "rows":
+        return {"analyze_gemv_rows_cuda": 1,
+                "gemv_rows_acc_cuda" if c["name"] == "gemv_uneven"
+                else "gemv_bits_mxu_cuda": 1}
+    if e in ("exgemv_sharded", "exgemv_sharded_2d"):
+        return {"gemv_rows_acc_cuda": 1}
+    if e in ("exgemm_sharded", "exgemm_sharded_2d"):
+        return {"gemm_bits_cuda": 1}
+    if e == "extrsv_sharded":
+        nb = -(-n // world)
+        updates = (-(-nb // _choose_block(nb)) - 1) + rank
+        return {"gemv_rows_acc_cuda": updates} if updates else {}
+    return {}
+
+
+def phase_parallel(xt, smi: str) -> tuple[dict, dict]:
+    """The mesh layer (``exblas_tpu_torch.parallel``) on the card: every
+    sharded entry at the benchmark widths in a world of one rank over
+    NCCL, then in worlds of two and four ranks over Gloo on CUDA tensors
+    (one card: every rank on cuda:0), 2-D meshes (1, 1); (1, 2), (2, 1);
+    (1, 4), (2, 2), (4, 1) and uneven sizes.  Every rank's bits must equal
+    every other rank's, the other worlds' and the single-card public
+    entry's (and, on samples, the host's exact values); each rank's
+    launches must be those its route names; +Inf and -Inf on two ranks
+    must give the canonical NaN.  World 1 times each sharded entry beside
+    its single-card entry.  Returns the launches of the sharded calls
+    (every rank of every world, by kernel) and world 1's times."""
+    import pathlib
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
+                           / "tests"))
+    import torch_dist
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent / PAR_DIR
+    root.mkdir(parents=True, exist_ok=True)
+    data = parallel_data(xt)
+    for name, arr in data.items():
+        np.save(root / f"{name}.npy", arr)
+    log(f"parallel: {len(data)} arrays, "
+        f"{sum(a.nbytes for a in data.values()) / 2**30:.2f} GiB made and "
+        f"saved in {time.perf_counter() - t_phase:.1f} s")
+    calls = {w: parallel_calls(w) for w in PAR_WORLDS}
+    t0 = time.perf_counter()
+    refs, single = parallel_refs([c for w in calls for c in calls[w]])
+    log(f"parallel: {len(refs)} single-card references in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worlds = {1: torch_dist.spawn_world(
+        parallel_child, 1, (calls[1], True), backend="nccl",
+        device_type="cuda", rendezvous_dir=str(root), timeout=600)}
+    t1 = time.perf_counter()
+    # worlds 2 and 4 side by side: six ranks on the card and the host
+    worlds.update(torch_dist.spawn_worlds(
+        parallel_child, {w: (calls[w], False) for w in (2, 4)},
+        max_ranks=6, backend="gloo", device_type="cuda",
+        rendezvous_dir=str(root), timeout=400))
+    seconds = (t1 - t0, time.perf_counter() - t1)
+    for world, ranks in worlds.items():
+        log(f"parallel: world {world} over {ranks[0]['backend']}, every "
+            f"rank on {ranks[0]['device']}")
+
+    launches, checked = {}, 0
+    for world, ranks in worlds.items():
+        for i, c in enumerate(calls[world]):
+            results = [rk["calls"][i] for rk in ranks]
+            want = refs[c["name"]]
+            for rank, r in enumerate(results):
+                if r["bits"].tobytes() != want.tobytes():
+                    raise AssertionError(
+                        f"parallel world {world} rank {rank}: {c['entry']} "
+                        f"{c['name']} {c['mesh']} differs from the "
+                        "single-card entry")
+                want_l = expected_par_launches(
+                    c, r["route"], world, rank, want.shape[0] if want.ndim
+                    else 0)
+                if r["launches"] != want_l:
+                    raise AssertionError(
+                        f"parallel world {world} rank {rank}: {c['entry']} "
+                        f"{c['name']} {c['mesh']} route {r['route']} "
+                        f"launched {r['launches']}, expected {want_l}")
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+                checked += 1
+    if refs["sum_pm_inf"].view(np.uint64)[()] != 0x7FF8000000000000:
+        raise AssertionError("parallel: +Inf and -Inf on two ranks did not "
+                             "give the canonical NaN")
+    # exact host values on the uneven bench sizes and on samples
+    n = N_BIG + 3
+    host = {"sum": math.fsum(data[f"narrow_{n}"].tolist()),
+            "dot": exact_dot_host(data[f"narrow_{n}"], data[f"narrow_b_{n}"])}
+    for key, name in (("sum", f"sum_narrow_{n}"), ("dot", f"dot_narrow_{n}")):
+        if f64_bits(float(refs[name].view(np.float64))) != f64_bits(
+                host[key]):
+            raise AssertionError(f"parallel {name}: not the host's exact "
+                                 "value")
+    rs = np.random.RandomState(SEED + 12)
+    a, x = data["gemv_a"], data["gemv_x"]
+    got = refs["gemv_0.0_N"].view(np.float64)
+    for i in rs.choice(N_GEMV, 16, replace=False):
+        if f64_bits(got[i]) != f64_bits(exact_dot_host(a[i], x)):
+            raise AssertionError(f"parallel gemv row {i}: not exact")
+    ga, gb, gc = data["gemm_a"], data["gemm_b"], data["gemm_c"]
+    got = refs["gemm"].view(np.float64)
+    for i, j in rs.randint(0, N_GEMM, (16, 2)):
+        if f64_bits(got[i, j]) != f64_bits(exact_dot_host(
+                ga[i], gb[:, j], extra=(gc[i, j],))):
+            raise AssertionError(f"parallel gemm ({i}, {j}): not exact")
+    times = worlds[1][0]["times"]
+    log(f"parallel: {checked} rank results bit-equal across ranks, worlds "
+        f"(1, 2, 4) and to the single-card entries; the uneven sum and dot "
+        f"equal to math.fsum and the exact host dot, 16 GEMV rows and 16 "
+        f"GEMM elements to exact host dots; +Inf/-Inf on two ranks give "
+        f"0x7FF8000000000000; launches of the sharded calls {launches}")
+    log(f"time parallel [{smi}] (world 1 over NCCL, CUDA events: the "
+        f"median of 7 x 5 calls, the {', '.join(PAR_HEAVY)} calls once; "
+        f"the single-card entry in the parent process, median of 7 x 5):")
+    ref_of = {c["name"]: c["ref"][0] for c in calls[1]}
+    for label, ms in times.items():
+        name = label.split()[1]
+        log(f"  {label}: {ms:.4f} ms; {ref_of[name]} "
+            f"{single[f'{ref_of[name]} {name}']:.4f} ms")
+    log(f"  world 1 {seconds[0]:.1f} s of wall time with its start-up, "
+        f"checks and timings; worlds 2 and 4 side by side (Gloo, one shared "
+        f"card, the host as the wire; not a scaling figure) "
+        f"{seconds[1]:.1f} s")
+    log(f"parallel phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, times
+
+
+# ---------------------------------------------------------------------------
 # Summary
 # ---------------------------------------------------------------------------
 
@@ -3151,7 +3556,7 @@ PHASES = ("kernels", "fast_kernels", "public_api", "gemm_kernels",
           "gemm_public", "gemv_kernels", "gemv_public", "rowdot_kernels",
           "trsv_kernels",
           "trsv_public", "timing", "fast_timing", "gemm_timing",
-          "gemv_timing", "trsv_timing", "apps")
+          "gemv_timing", "trsv_timing", "apps", "parallel")
 
 
 def run_only(xt, smi: str, names: list[str]) -> None:
@@ -3186,6 +3591,7 @@ def run_only(xt, smi: str, names: list[str]) -> None:
         "gemv_timing": lambda: phase_gemv_timing(xt, smi, bench("gemv")),
         "trsv_timing": lambda: phase_trsv_timing(xt, smi, bench("trsv")),
         "apps": lambda: phase_apps(xt, smi),
+        "parallel": lambda: phase_parallel(xt, smi),
     }
     for name in PHASES:
         if name in names:
@@ -3237,6 +3643,7 @@ def main() -> None:
     gemv_times = phase_gemv_timing(xt, smi, gemv_bench)
     trsv_times = phase_trsv_timing(xt, smi, trsv_bench)
     apps_launches, _ = phase_apps(xt, smi)
+    parallel_launches, _ = phase_parallel(xt, smi)
     summary = []
     for name, src, rep, bpe, lib in KERNELS:
         t_k, t_p, t_n = times[name]
@@ -3261,6 +3668,7 @@ def main() -> None:
                 "max_abs_err": errs[name], **kernel_times[name]})
     for entry in summary:
         entry["apps_launches"] = apps_launches.get(entry["name"], 0)
+        entry["parallel_launches"] = parallel_launches.get(entry["name"], 0)
     log(f"chip_smoke seconds {time.perf_counter() - t0:.1f}")
     log(smi)
     log(json.dumps({"kernels": summary}))

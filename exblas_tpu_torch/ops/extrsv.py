@@ -39,6 +39,7 @@ from ..core.types import DOT_FORMAT, L_DOT, LIMB_BITS, N_SPECIAL
 from .exgemv import (_apply_inc, _apply_ld, deposit_terms_rows, dot_rows_acc,
                      round_rows)
 from .exsum import _validate_fpe, as_f64, resolve_impl, target_device
+from .kernels import gemv_kernel
 
 __all__ = ["extrsv", "extrsv_bits", "solve_diag_block", "solve_panel"]
 
@@ -98,14 +99,17 @@ def solve_diag_block(td_bits, acc_blk, spec_blk, unit: bool):
     return xb
 
 
-def solve_panel(t_bits, acc, special, unit: bool, block: int):
+def solve_panel(t_bits, acc, special, unit: bool, block: int,
+                kernels: bool = False):
     """Blocked sweep over a (p, p) lower-triangular panel given its rows'
     exact accumulators (b deposited, minus every deposit from the columns
     left of the panel): each diagonal block by :func:`solve_diag_block`,
     then the trailing update of the rows below it with the block's columns
-    (``dot_rows_acc``).  ``acc`` (p, L) and ``special`` (p, 3) are updated
-    in place; a last block shorter than ``block`` is solved as it is.
-    Returns x's bits (p,)."""
+    (``dot_rows_acc``, or with ``kernels`` the row kernel B7 on CUDA
+    tensors, as the JAX package's ``impl="pallas"`` runs its GEMV kernel
+    there).  ``acc`` (p, L) and ``special`` (p, 3) are updated in place; a
+    last block shorter than ``block`` is solved as it is.  Returns x's
+    bits (p,)."""
     p = t_bits.shape[0]
     x = torch.empty(p, dtype=torch.int64, device=t_bits.device)
     for base in range(0, p, block):
@@ -113,11 +117,16 @@ def solve_panel(t_bits, acc, special, unit: bool, block: int):
         x[base:end] = solve_diag_block(t_bits[base:end, base:end],
                                        acc[base:end], special[base:end],
                                        unit)
-        if end < p:
+        if end == p:
+            break
+        if kernels:
+            d_limbs, d_special = gemv_kernel.gemv_rows_acc_cuda(
+                t_bits[end:, base:end], x[base:end], negate_z=True)
+        else:
             d_limbs, d_special = dot_rows_acc(t_bits[end:, base:end]
                                               ^ SIGN_BIT, x[base:end])
-            acc[end:] += d_limbs
-            special[end:] += d_special
+        acc[end:] += d_limbs
+        special[end:] += d_special
     return x
 
 
