@@ -87,8 +87,11 @@ layer ``exblas_tpu_torch.parallel`` (phase ``parallel``) in worlds of
 processes spawned by ``tests/torch_dist.py`` -- one rank over NCCL, then
 two and four ranks over Gloo on CUDA tensors, all on this card -- where
 every sharded entry must give every rank the single-card entry's bits
-and each rank must launch the kernels its route names; and prints one
-JSON summary line per the contract below.  Any
+and each rank must launch the kernels its route names; holds the
+program's own sync counter (``profiling.host_sync.counts``) against
+PyTorch's sync debug mode on the benchmark's four calls at 2^24 and 1024
+(phase ``syncs``), and their spans in a ``torch.profiler`` trace; and
+prints one JSON summary line per the contract below.  Any
 failure raises, so the script exits non-zero without the final line.  It
 also exits non-zero when no CUDA device is present.
 
@@ -3552,11 +3555,82 @@ FAST_KERNELS = (
 )
 
 
+# The benchmark's cells' calls at a smaller size, and the host
+# synchronizations a call that the program counts by cause on each.
+SYNC_CASES = (
+    ("exsum_bits 2^24 range2", "range2", {"spread": 1, "flag": 1}),
+    ("exsum_bits 2^24 range300", "range300", {"spread": 1}),
+    ("exgemm_bits 1024 range2", "range2", {"scalar": 4, "plan": 1}),
+    ("exgemm_bits 1024 range50", "range50", {"scalar": 4, "plan": 1}),
+)
+
+
+def sync_case_call(xt, name: str, traffic: str):
+    """The call of one ``SYNC_CASES`` entry on data drawn by the
+    benchmark's generator from its traffic mix (``perfbench/``)."""
+    from perfbench import gen, harness
+
+    mix = harness.load("traffic", traffic)
+    g = gen.generator(SEED, "cuda")
+    if name.startswith("exsum_bits"):
+        x = gen.draw((1 << 24,), mix, g, "cuda")
+        return lambda: xt.exsum_bits(x)
+    a, b, c = (gen.draw((1024, 1024), mix, g, "cuda", matrix=True)
+               for _ in range(3))
+    return lambda: xt.exgemm_bits("N", "N", 1.0, a, b, beta=1.0, c=c)
+
+
+def phase_syncs(xt) -> None:
+    """The program's own sync counter (``profiling.host_sync.counts``)
+    against PyTorch's sync debug mode (the benchmark's ``count_syncs``)
+    for the same call, after a first call, on each of ``SYNC_CASES``:
+    the totals must agree and the causes be the expected ones.  The first
+    call counted under the debug mode reads one synchronization more than
+    every later one (as in the benchmark), so each case is counted twice
+    and the second count is compared.  Then one
+    profiled call of each: its ``exblas.sync.*`` spans must be as many as
+    the counted syncs, and a call open at most 8 spans (a sum) or 16 (a
+    GEMM)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from exblas_tpu_torch.utils import profiling
+    from perfbench.syncs import count_syncs as bench_count_syncs
+
+    counts = profiling.host_sync.counts
+    for name, traffic, want in SYNC_CASES:
+        fn = sync_case_call(xt, name, traffic)
+        fn()
+        bench_count_syncs(fn)
+        before = dict(counts)
+        seen, _ = bench_count_syncs(fn)
+        got = {k: v - before.get(k, 0) for k, v in counts.items()
+               if v != before.get(k, 0)}
+        if sum(got.values()) != seen or got != want:
+            raise AssertionError(f"syncs of {name}: the program counted "
+                                 f"{got}, sync debug mode {seen}, "
+                                 f"expected {want}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = [e.name for e in prof.events()
+                 if e.name.startswith("exblas.")
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+        n_sync = sum(n.startswith("exblas.sync.") for n in spans)
+        cap = 8 if name.startswith("exsum") else 16
+        if n_sync != seen or len(spans) > cap:
+            raise AssertionError(f"spans of {name}: {n_sync} sync spans "
+                                 f"for {seen} syncs, {len(spans)} spans "
+                                 f"(at most {cap}): {spans}")
+        log(f"syncs of {name}: program {got}, sync debug mode {seen}; "
+            f"{len(spans)} spans: {spans}")
+
+
 PHASES = ("kernels", "fast_kernels", "public_api", "gemm_kernels",
           "gemm_public", "gemv_kernels", "gemv_public", "rowdot_kernels",
           "trsv_kernels",
           "trsv_public", "timing", "fast_timing", "gemm_timing",
-          "gemv_timing", "trsv_timing", "apps", "parallel")
+          "gemv_timing", "trsv_timing", "apps", "parallel", "syncs")
 
 
 def run_only(xt, smi: str, names: list[str]) -> None:
@@ -3592,6 +3666,7 @@ def run_only(xt, smi: str, names: list[str]) -> None:
         "trsv_timing": lambda: phase_trsv_timing(xt, smi, bench("trsv")),
         "apps": lambda: phase_apps(xt, smi),
         "parallel": lambda: phase_parallel(xt, smi),
+        "syncs": lambda: phase_syncs(xt),
     }
     for name in PHASES:
         if name in names:
@@ -3644,6 +3719,7 @@ def main() -> None:
     trsv_times = phase_trsv_timing(xt, smi, trsv_bench)
     apps_launches, _ = phase_apps(xt, smi)
     parallel_launches, _ = phase_parallel(xt, smi)
+    phase_syncs(xt)
     summary = []
     for name, src, rep, bpe, lib in KERNELS:
         t_k, t_p, t_n = times[name]

@@ -21,6 +21,7 @@ import torch
 from ..core.accumulator import to_int32_limbs
 from ..core.rounding import bits_to_float
 from ..core.types import DOT_FORMAT, N_SPECIAL, Superacc
+from ..utils import profiling
 from .exsum import _validate_fpe, as_f64_slice, resolve_impl, target_device
 from .kernels import dot_kernel, dot_mxu
 from .kernels.dot_mxu import MAX_N_DOT_MXU, WINDOW
@@ -32,6 +33,8 @@ __all__ = ["exdot", "exdot_acc", "exdot_bits"]
 # The JAX package's threshold for the anchored ladder (``exdot.py:39-41``),
 # kept so that both packages route alike.
 _DOT_MXU_MIN = 1 << 20
+# The span of the window pass: both sides' windows are WINDOW bits.
+_WINDOW_SPAN = f"exblas.dot.window.nwa{WINDOW // 32}"
 
 
 def _use_mxu(n: int) -> bool:
@@ -53,25 +56,39 @@ def _dot_mxu_ladder(a, b, fast, exact):
     pass, which changes no tier and no bit.  ``fast(a, b, ea, eb)`` gives
     (result, bad); returns (result, the tiers taken).  Host
     synchronizations: one per side for its sampled spread (two in the
-    guard band), one per window pass for its flag."""
+    guard band), one per window pass for its flag, each counted in
+    ``profiling.host_sync.counts``; the steps are the spans
+    ``exblas.dot.route``, ``exblas.dot.window.nwa5`` (both sides' windows
+    are 5 words), ``exblas.dot.retry`` and ``exblas.dot.exact``."""
     bound = WINDOW + _ANCHOR_SLACK
-    ea_r, spread_a = resolve_anchor(a, *sample_anchor(a), (bound,))
-    eb_r, spread_b = resolve_anchor(b, *sample_anchor(b), (bound,))
-    if spread_a > bound or spread_b > bound:
-        return exact(a, b), ("exact",)
+    with profiling.annotate("exblas.dot.route"):
+        ea_r, spread_a = resolve_anchor(a, *sample_anchor(a), (bound,))
+        eb_r, spread_b = resolve_anchor(b, *sample_anchor(b), (bound,))
+        over = spread_a > bound or spread_b > bound
+    if over:
+        with profiling.annotate("exblas.dot.exact"):
+            return exact(a, b), ("exact",)
     tight = spread_a > WINDOW or spread_b > WINDOW
     ea_use = ea_r - _ANCHOR_SLACK if spread_a > WINDOW else ea_r
     eb_use = eb_r - _ANCHOR_SLACK if spread_b > WINDOW else eb_r
-    out, bad = fast(a, b, device_anchor(ea_use, a.device),
-                    device_anchor(eb_use, a.device))
-    if not bool(bad):
+    with profiling.annotate(_WINDOW_SPAN):
+        out, bad = fast(a, b, device_anchor(ea_use, a.device),
+                        device_anchor(eb_use, a.device))
+        with profiling.host_sync("flag"):
+            bad = bool(bad)
+    if not bad:
         return out, ("fast",)
     if tight:
-        return exact(a, b), ("fast", "exact")
-    out, bad = fast(a, b, exact_anchor(a), exact_anchor(b))
-    if not bool(bad):
+        with profiling.annotate("exblas.dot.exact"):
+            return exact(a, b), ("fast", "exact")
+    with profiling.annotate("exblas.dot.retry"):
+        out, bad = fast(a, b, exact_anchor(a), exact_anchor(b))
+        with profiling.host_sync("flag"):
+            bad = bool(bad)
+    if not bad:
         return out, ("fast", "retry")
-    return exact(a, b), ("fast", "retry", "exact")
+    with profiling.annotate("exblas.dot.exact"):
+        return exact(a, b), ("fast", "retry", "exact")
 
 
 def _exdot_bits_mxu_auto(a, b, kernels: bool) -> torch.Tensor:
@@ -118,6 +135,7 @@ def _operands(a, b, inca, offseta, incb, offsetb, fpe, device):
     return a.reshape(-1).contiguous(), b.reshape(-1).contiguous()
 
 
+@profiling.spanned("exblas.exdot_acc")
 def exdot_acc(a, b, inca: int = 1, offseta: int = 0, incb: int = 1,
               offsetb: int = 0, fpe: int = 3, early_exit: bool = False,
               impl: str | None = None, device=None) -> Superacc:
@@ -131,6 +149,7 @@ def exdot_acc(a, b, inca: int = 1, offseta: int = 0, incb: int = 1,
     return dot_kernel.exdot_acc_torch(a, b)
 
 
+@profiling.spanned("exblas.exdot_bits")
 def exdot_bits(a, b, inca: int = 1, offseta: int = 0, incb: int = 1,
                offsetb: int = 0, fpe: int = 3, early_exit: bool = False,
                impl: str | None = None, device=None) -> torch.Tensor:
@@ -144,6 +163,7 @@ def exdot_bits(a, b, inca: int = 1, offseta: int = 0, incb: int = 1,
     return dot_kernel.exdot_bits_torch(a, b)
 
 
+@profiling.spanned("exblas.exdot")
 def exdot(a, b, inca: int = 1, offseta: int = 0, incb: int = 1,
           offsetb: int = 0, fpe: int = 3, early_exit: bool = False,
           impl: str | None = None, device=None) -> float:

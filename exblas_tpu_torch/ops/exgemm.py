@@ -36,6 +36,7 @@ from ..core import deposit as dep
 from ..core.f64ops import f64_mul
 from ..core.ieee import FRAC_MASK, decode_fields, f64_bits
 from ..core.rounding import NINF_BITS, PINF_BITS, QNAN_BITS
+from ..utils import profiling
 from .exgemv import _apply_ld, _scalar_bits, gemm_acc
 from .exsum import _validate_fpe, as_f64, resolve_impl, target_device
 from .kernels import gemm_kernel, gemm_mxu
@@ -90,6 +91,13 @@ def _special_masks_matmul(z_bits, b_bits):
     return nan_c > 0, pinf_c > 0, ninf_c > 0
 
 
+def _device_scalar(v, device) -> torch.Tensor:
+    """A host scalar as a 0-dim tensor on ``device``: a blocking copy on
+    a card, counted as the host synchronization ``scalar``."""
+    with profiling.host_sync("scalar"):
+        return torch.tensor(v, device=device)
+
+
 def _finite_nonzero(bits: int) -> bool:
     return (bits >> 52) & 0x7FF != 0x7FF and bits & _MAGNITUDE != 0
 
@@ -102,7 +110,7 @@ def _c_cover_bounds(c_bits, beta_bits: int, ea0, fb0):
     1075); its msb lies at most 106 bits above."""
     dev = c_bits.device
     if not _finite_nonzero(beta_bits):
-        return torch.tensor(_FAR, device=dev), torch.tensor(-_FAR, device=dev)
+        return _device_scalar(_FAR, dev), _device_scalar(-_FAR, dev)
     e_lsb_b = max((beta_bits >> 52) & 0x7FF, 1) - 1075
     expf_c = (c_bits >> 52) & 0x7FF
     valid = (expf_c != 0x7FF) & ((c_bits & _MAGNITUDE) != 0)
@@ -153,6 +161,7 @@ class GemmPlan:
     c_flags: tuple | None = None
 
 
+@profiling.spanned("exblas.gemm.plan")
 def plan_gemm(z_bits, b_bits, c_bits, beta_bits: int,
               beta_mode: str) -> GemmPlan:
     """The route of one ExGEMM call (see module doc).  An empty m, n or k
@@ -164,9 +173,9 @@ def plan_gemm(z_bits, b_bits, c_bits, beta_bits: int,
     ea0 = torch.where(ea < -9000, 0, ea)
     fb0 = torch.where(fb < -9000, 0, fb)
     dev = z_bits.device
-    lo = torch.tensor(_FAR, device=dev)
-    hi = torch.tensor(-_FAR, device=dev)
-    has_special_c = torch.tensor(False, device=dev)
+    lo = _device_scalar(_FAR, dev)
+    hi = _device_scalar(-_FAR, dev)
+    has_special_c = _device_scalar(False, dev)
     c_flags = None
     if beta_mode != "zero":
         lo, hi = _c_cover_bounds(c_bits, beta_bits, ea0, fb0)
@@ -174,9 +183,11 @@ def plan_gemm(z_bits, b_bits, c_bits, beta_bits: int,
         has_special_c = (c_flags[0] | c_flags[1] | c_flags[2]).any()
     # One host sync per call: the JAX package picks the rung on the device
     # (lax.switch); here the packed flags come to the host once.
-    sp_a, sp_b, spec_zb, spec_c, lo, hi = torch.stack(
+    packed = torch.stack(
         [spread_a, spread_b, has_special_zb.to(torch.int64),
-         has_special_c.to(torch.int64), lo, hi]).tolist()
+         has_special_c.to(torch.int64), lo, hi])
+    with profiling.host_sync("plan"):
+        sp_a, sp_b, spec_zb, spec_c, lo, hi = packed.tolist()
     for sa, sb in _MXU_LADDER:
         if sp_a <= 8 * sa and sp_b <= 8 * sb and _mxu_c_cover(lo, hi, sa, sb):
             return GemmPlan(rung=(sa, sb), ea0=ea0, fb0=fb0,
@@ -193,21 +204,23 @@ def _gemm_bits_auto(z_bits, b_bits, c_bits, beta_bits: int, beta_mode: str,
     if plan.rung is None:
         exact = (gemm_kernel.gemm_bits_cuda if kernels
                  else gemm_kernel.gemm_bits_torch)
-        return exact(z_bits, b_bits, c_bits, beta_bits, beta_mode)
+        with profiling.annotate("exblas.gemm.exact"):
+            return exact(z_bits, b_bits, c_bits, beta_bits, beta_mode)
     mxu = (gemm_mxu.gemm_bits_mxu_cuda if kernels
            else gemm_mxu.gemm_bits_mxu_torch)
     bits = mxu(z_bits, b_bits, c_bits, beta_bits, beta_mode, *plan.rung,
                ea=plan.ea0, fb=plan.fb0)
     if plan.override:
-        nan_m, pos_m, neg_m = _special_masks_matmul(z_bits, b_bits)
-        if plan.c_flags is not None:
-            nan_m = nan_m | plan.c_flags[0]
-            pos_m = pos_m | plan.c_flags[1]
-            neg_m = neg_m | plan.c_flags[2]
-        is_nan = nan_m | (pos_m & neg_m)
-        bits = torch.where(neg_m, NINF_BITS, bits)
-        bits = torch.where(pos_m, PINF_BITS, bits)
-        bits = torch.where(is_nan, QNAN_BITS, bits)
+        with profiling.annotate("exblas.gemm.override"):
+            nan_m, pos_m, neg_m = _special_masks_matmul(z_bits, b_bits)
+            if plan.c_flags is not None:
+                nan_m = nan_m | plan.c_flags[0]
+                pos_m = pos_m | plan.c_flags[1]
+                neg_m = neg_m | plan.c_flags[2]
+            is_nan = nan_m | (pos_m & neg_m)
+            bits = torch.where(neg_m, NINF_BITS, bits)
+            bits = torch.where(pos_m, PINF_BITS, bits)
+            bits = torch.where(is_nan, QNAN_BITS, bits)
     return bits
 
 
@@ -245,6 +258,7 @@ def _operands(transa, transb, a, b, c, m, n, k, lda, ldb, ldc, device):
     return a, b, c
 
 
+@profiling.spanned("exblas.exgemm_bits")
 def exgemm_bits(transa: str, transb: str, alpha: float, a, b,
                 beta: float = 1.0, c=None, fpe: int = 3,
                 early_exit: bool = False, impl: str | None = None,
@@ -261,13 +275,15 @@ def exgemm_bits(transa: str, transb: str, alpha: float, a, b,
     kernels = resolve_impl(impl, a.device) == "cuda"
     beta_mode = "zero" if (beta == 0.0 or c is None) else (
         "one" if beta == 1.0 else "general")
-    alpha_bits = torch.tensor(_scalar_bits(alpha), device=a.device)
-    z_bits = f64_mul(alpha_bits, f64_bits(a))
-    c_bits = f64_bits(c) if beta_mode != "zero" else None
+    with profiling.annotate("exblas.gemm.operands"):
+        alpha_bits = _device_scalar(_scalar_bits(alpha), a.device)
+        z_bits = f64_mul(alpha_bits, f64_bits(a))
+        c_bits = f64_bits(c) if beta_mode != "zero" else None
     return _gemm_bits_auto(z_bits, f64_bits(b), c_bits, _scalar_bits(beta),
                            beta_mode, kernels)
 
 
+@profiling.spanned("exblas.exgemm")
 def exgemm(transa: str, transb: str, alpha: float, a, b, beta: float = 1.0,
            c=None, fpe: int = 3, early_exit: bool = False,
            impl: str | None = None, m: int | None = None,

@@ -42,6 +42,7 @@ from ..core.rounding import (NINF_BITS, PINF_BITS, QNAN_BITS,
                              apply_specials, canonicalize_digits,
                              round_digits_to_f64_bits)
 from ..core.types import DOT_FORMAT, L_DOT, N_SPECIAL
+from ..utils import profiling
 from .exsum import _validate_fpe, as_f64, resolve_impl, target_device
 
 __all__ = ["exgemv", "exgemv_bits", "plan_gemv", "dot_rows_acc",
@@ -302,6 +303,7 @@ def _operands(trans, a, x, beta, y, m, n, lda, incx, incy, device):
     return a, x, y
 
 
+@profiling.spanned("exblas.exgemv_bits")
 def exgemv_bits(trans: str, alpha: float, a, x, beta: float = 0.0, y=None,
                 fpe: int = 3, early_exit: bool = False,
                 impl: str | None = None, m: int | None = None,
@@ -323,6 +325,7 @@ def exgemv_bits(trans: str, alpha: float, a, x, beta: float = 0.0, y=None,
                            beta_mode, kernels)
 
 
+@profiling.spanned("exblas.exgemv")
 def exgemv(trans: str, alpha: float, a, x, beta: float = 0.0, y=None,
            fpe: int = 3, early_exit: bool = False, impl: str | None = None,
            m: int | None = None, n: int | None = None,

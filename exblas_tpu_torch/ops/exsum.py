@@ -40,6 +40,7 @@ from ..core.ieee import f64_bits
 from ..core.rounding import (apply_specials, bits_to_float,
                              canonicalize_digits, round_digits_to_f64_bits)
 from ..core.types import N_SPECIAL, SUM_FORMAT, Superacc
+from ..utils import profiling
 from .kernels import sum_kernel, sum_mxu
 from .kernels.sum_mxu import (_ANCHOR_SLACK, MAX_N_MXU, device_anchor,
                               exact_anchor, resolve_anchor, sample_anchor)
@@ -137,21 +138,32 @@ def _sum_ladder(x: torch.Tensor, fast, exact):
     if that flags too, run the exact kernel.  ``fast(x, anchor, nwa)``
     gives (result, bad); returns (result, the tiers taken in order).
     Host synchronizations: one for the sampled spread (two in the guard
-    band), one per window pass for its flag."""
-    e_est, spread = resolve_anchor(x, *sample_anchor(x),
-                                   [b for b, _, _ in _SUM_TIERS])
-    for bound, nwa, deslack in _SUM_TIERS:
-        if spread <= bound:
-            break
-    else:
-        return exact(x), ("exact",)
-    out, bad = fast(x, device_anchor(e_est - deslack, x.device), nwa)
-    if not bool(bad):
+    band), one per window pass for its flag, each counted in
+    ``profiling.host_sync.counts``; the steps are the spans
+    ``exblas.sum.route``, ``exblas.sum.window.nwa<k>``,
+    ``exblas.sum.retry`` and ``exblas.sum.exact``."""
+    with profiling.annotate("exblas.sum.route"):
+        e_est, spread = resolve_anchor(x, *sample_anchor(x),
+                                       [b for b, _, _ in _SUM_TIERS])
+        tier = next((t for t in _SUM_TIERS if spread <= t[0]), None)
+    if tier is None:
+        with profiling.annotate("exblas.sum.exact"):
+            return exact(x), ("exact",)
+    _, nwa, deslack = tier
+    with profiling.annotate(f"exblas.sum.window.nwa{nwa}"):
+        out, bad = fast(x, device_anchor(e_est - deslack, x.device), nwa)
+        with profiling.host_sync("flag"):
+            bad = bool(bad)
+    if not bad:
         return out, (f"nwa{nwa}",)
-    out, bad = fast(x, exact_anchor(x), 5)
-    if not bool(bad):
+    with profiling.annotate("exblas.sum.retry"):
+        out, bad = fast(x, exact_anchor(x), 5)
+        with profiling.host_sync("flag"):
+            bad = bool(bad)
+    if not bad:
         return out, (f"nwa{nwa}", "retry")
-    return exact(x), (f"nwa{nwa}", "retry", "exact")
+    with profiling.annotate("exblas.sum.exact"):
+        return exact(x), (f"nwa{nwa}", "retry", "exact")
 
 
 def _exsum_bits_mxu_auto(x: torch.Tensor, kernels: bool) -> torch.Tensor:
@@ -187,6 +199,7 @@ _exsum_bits_mxu_auto.route = ()
 _exsum_acc_mxu_auto.route = ()
 
 
+@profiling.spanned("exblas.exsum_acc")
 def exsum_acc(x, inca: int = 1, offset: int = 0, fpe: int = 2,
               early_exit: bool = False, impl: str | None = None,
               device=None) -> Superacc:
@@ -201,6 +214,7 @@ def exsum_acc(x, inca: int = 1, offset: int = 0, fpe: int = 2,
     return sum_kernel.exsum_acc_torch(x)
 
 
+@profiling.spanned("exblas.exsum_bits")
 def exsum_bits(x, inca: int = 1, offset: int = 0, fpe: int = 2,
                early_exit: bool = False, impl: str | None = None,
                device=None) -> torch.Tensor:
@@ -216,6 +230,7 @@ def exsum_bits(x, inca: int = 1, offset: int = 0, fpe: int = 2,
     return sum_kernel.exsum_bits_torch(x)
 
 
+@profiling.spanned("exblas.exsum")
 def exsum(x, inca: int = 1, offset: int = 0, fpe: int = 2,
           early_exit: bool = False, impl: str | None = None,
           parallel: bool = True, device=None) -> float:
@@ -241,6 +256,7 @@ def exsum(x, inca: int = 1, offset: int = 0, fpe: int = 2,
 SEGMENT_CHUNK = 1 << 22
 
 
+@profiling.spanned("exblas.exsum_segmented_bits")
 def exsum_segmented_bits(x_bits, segment_ids,
                          num_segments: int) -> torch.Tensor:
     """Per-segment exact sums of int64 binary64 patterns -> int64 bits
@@ -286,6 +302,7 @@ def exsum_segmented_bits(x_bits, segment_ids,
     return apply_specials(bits_out, special)
 
 
+@profiling.spanned("exblas.exsum_segmented")
 def exsum_segmented(x, segment_ids, num_segments: int,
                     device=None) -> np.ndarray:
     """Reproducible, correctly rounded per-segment sums in one batched pass

@@ -36,6 +36,7 @@ from ..core.f64ops import f64_div
 from ..core.ieee import f64_bits
 from ..core.rounding import SIGN_BIT
 from ..core.types import DOT_FORMAT, L_DOT, LIMB_BITS, N_SPECIAL
+from ..utils import profiling
 from .exgemv import (_apply_inc, _apply_ld, deposit_terms_rows, dot_rows_acc,
                      round_rows)
 from .exsum import _validate_fpe, as_f64, resolve_impl, target_device
@@ -162,6 +163,7 @@ def _operands(uplo, trans, diag, a, b, n, lda, incx, device):
     return uplo, trans, diag, a, b
 
 
+@profiling.spanned("exblas.extrsv_bits")
 def extrsv_bits(uplo: str, trans: str, diag: str, a, b, fpe: int = 3,
                 early_exit: bool = False, impl: str | None = None,
                 n: int | None = None, lda: int | None = None,
@@ -191,6 +193,7 @@ def extrsv_bits(uplo: str, trans: str, diag: str, a, b, fpe: int = 3,
     return bits.flip(0) if uplo == "U" else bits
 
 
+@profiling.spanned("exblas.extrsv")
 def extrsv(uplo: str, trans: str, diag: str, a, b, fpe: int = 3,
            early_exit: bool = False, impl: str | None = None,
            n: int | None = None, lda: int | None = None, incx: int = 1,

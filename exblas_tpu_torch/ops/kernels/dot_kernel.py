@@ -20,6 +20,7 @@ import torch
 from ...core.accumulator import accumulate_dot_terms, check_n_terms
 from ...core.rounding import round_superacc_to_f64_bits
 from ...core.types import DOT_FORMAT, L_DOT, N_SPECIAL, Superacc
+from ...utils import profiling
 from . import _build
 from ._build import check_cuda_f64, ptr, stream_of
 
@@ -38,6 +39,7 @@ def _check_pair(a: torch.Tensor, b: torch.Tensor, name: str) -> int:
     return a.numel()
 
 
+@profiling.spanned("exblas.launch.exdot_acc_cuda")
 def exdot_acc_cuda(a: torch.Tensor, b: torch.Tensor) -> Superacc:
     """Exact dot product of two CUDA float64 tensors -> Superacc."""
     n = _check_pair(a, b, "exdot_acc_cuda")
@@ -54,6 +56,7 @@ def exdot_acc_cuda(a: torch.Tensor, b: torch.Tensor) -> Superacc:
     return Superacc(limbs=limbs, special=special, fmt=DOT_FORMAT)
 
 
+@profiling.spanned("exblas.launch.exdot_bits_cuda")
 def exdot_bits_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact, correctly rounded dot product of two CUDA float64 tensors ->
     binary64 bits as a 0-dim int64 tensor on the device."""

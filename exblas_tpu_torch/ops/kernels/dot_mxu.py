@@ -34,6 +34,7 @@ import torch
 
 from ...core.rounding import rel_limbs_to_abs_limbs
 from ...core.types import DOT_FORMAT
+from ...utils import profiling
 from . import _build
 from ._build import check_cuda_f64, ptr, stream_of
 from .round_in_kernel import (round_scaled_terms_torch, term_limbs_count,
@@ -64,6 +65,7 @@ def _check_pair(a, b, name: str) -> int:
     return a.numel()
 
 
+@profiling.spanned("exblas.launch.dot_flat_cuda")
 def _dot_flat_ws(a: torch.Tensor, b: torch.Tensor, ea: torch.Tensor,
                  eb: torch.Tensor):
     """One launch of kernel B12; its workspace (14 int64): the terms, the

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ...core.accumulator import MAX_TERMS, check_n_terms
+from ...utils import profiling
 from ..exgemv import _apply_beta_rows, gemm_acc, round_rows
 from . import _build
 from ._build import ptr, stream_of
@@ -59,6 +60,7 @@ def _beta_code(beta_bits: int, beta_mode: str) -> tuple[int, int]:
     return mode, ONE_BITS if beta_mode == "one" else beta_bits
 
 
+@profiling.spanned("exblas.launch.gemm_bits_cuda")
 def gemm_bits_cuda(z_bits, b_bits, c_bits, beta_bits: int,
                    beta_mode: str) -> torch.Tensor:
     """Exact ExGEMM of CUDA bit tensors z (m, k), b (k, n), c (m, n) ->

@@ -39,6 +39,7 @@ from ...core import deposit as dep
 from ...core.ieee import FRAC_MASK, decode_fields
 from ...core.rounding import canonicalize_digits, round_digits_to_f64_bits
 from ...core.types import DOT_FORMAT, LIMB_BITS, LIMB_MASK
+from ...utils import profiling
 from . import _build
 from ._build import ptr, stream_of
 from .gemm_kernel import _beta_code, check_cuda_bits
@@ -278,6 +279,7 @@ def _digits_torch(x, anchors, rows_pad, k_pad, slices):
     return make_digits(xp, ap, slices, axis=0)
 
 
+@profiling.spanned("exblas.launch.mxu_digits_cuda")
 def _digits_cuda(x, anchors, rows_pad, k_pad, slices):
     x = x.contiguous()
     anchors = anchors.to(torch.int64).contiguous()
@@ -312,6 +314,7 @@ def _rel_layout(ops: MxuOperands, beta_mode: str):
     return rel0, ops.sa + ops.sb + 1, nl
 
 
+@profiling.spanned("exblas.launch.mxu_gemm88_cuda")
 def _gemm88_cuda(ops: MxuOperands, c_bits, mode: int, beta: int,
                  out) -> None:
     """Rung (8, 8): the wgmma class kernel rounds in its epilogue, one
@@ -338,6 +341,32 @@ def _gemm88_cuda(ops: MxuOperands, c_bits, mode: int, beta: int,
         _build.check(err, "mxu_gemm88_cuda")
 
 
+@profiling.spanned("exblas.launch.mxu_classes_cuda")
+def _classes_turn(ops: MxuOperands, r0: int, rr: int, cls) -> None:
+    """The class kernel on rows [r0, r0 + rr) of the padded A."""
+    _, m_pad, k_pad = ops.ad.shape
+    n_pad = ops.bd.shape[1]
+    err = _build.library().mxu_classes_cuda(
+        ops.ad.data_ptr() + r0 * k_pad, ptr(ops.bd), ops.sa, ops.sb,
+        m_pad * k_pad, n_pad * k_pad, rr, n_pad, k_pad,
+        _spill_run(ops.sa, ops.sb), ptr(cls), stream_of(cls.device))
+    _build.check(err, "mxu_classes_cuda")
+
+
+@profiling.spanned("exblas.launch.mxu_round_cuda")
+def _round_turn(ops: MxuOperands, r0: int, rr: int, cls, c_bits, mode: int,
+                beta: int, nl: int, rel0: int, out) -> None:
+    """The rounding kernel on the class sums of rows [r0, r0 + rr)."""
+    m, n = ops.m, ops.n
+    err = _build.library().mxu_round_cuda(
+        ptr(cls), cls.shape[0], rr, cls.shape[2], ops.ea.data_ptr() + 4 * r0,
+        ptr(ops.fb), c_bits.data_ptr() + 8 * r0 * n if mode else None,
+        beta, mode, min(rr, m - r0), n, nl, rel0,
+        out.data_ptr() + 8 * r0 * n, stream_of(cls.device))
+    _build.check(err, "mxu_round_cuda")
+    gemm_bits_mxu_cuda.round_launches += 1
+
+
 def _gemm_classes_cuda(ops: MxuOperands, c_bits, mode: int, beta: int,
                        beta_mode: str, out) -> None:
     """The other rungs: int64 class sums in device memory, taken in turns
@@ -346,30 +375,16 @@ def _gemm_classes_cuda(ops: MxuOperands, c_bits, mode: int, beta: int,
     if nl > MAX_REL_LIMBS:
         raise ValueError(f"gemm_bits_mxu_cuda: {nl} accumulator limbs "
                          f"exceed {MAX_REL_LIMBS}")
-    sa, sb, m, n = ops.sa, ops.sb, ops.m, ops.n
-    _, m_pad, k_pad = ops.ad.shape
-    n_pad = ops.bd.shape[1]
-    dev = out.device
+    m_pad, n_pad = ops.ad.shape[1], ops.bd.shape[1]
     rows = min(m_pad, max(ROW_TILE, CLS_BYTES // (8 * n_cls * n_pad)
                           // ROW_TILE * ROW_TILE))
-    cls = torch.empty((n_cls, rows, n_pad), dtype=torch.int64, device=dev)
+    cls = torch.empty((n_cls, rows, n_pad), dtype=torch.int64,
+                      device=out.device)
     gemm_bits_mxu_cuda.class_buffers += 1
-    lib = _build.library()
-    stream = stream_of(dev)
-    for r0 in range(0, m, rows):
+    for r0 in range(0, ops.m, rows):
         rr = min(rows, m_pad - r0)
-        err = lib.mxu_classes_cuda(
-            ops.ad.data_ptr() + r0 * k_pad, ptr(ops.bd), sa, sb,
-            m_pad * k_pad, n_pad * k_pad, rr, n_pad, k_pad,
-            _spill_run(sa, sb), ptr(cls), stream)
-        _build.check(err, "mxu_classes_cuda")
-        err = lib.mxu_round_cuda(
-            ptr(cls), n_cls, rr, n_pad, ops.ea.data_ptr() + 4 * r0,
-            ptr(ops.fb), c_bits.data_ptr() + 8 * r0 * n if mode else None,
-            beta, mode, min(rr, m - r0), n, nl, rel0,
-            out.data_ptr() + 8 * r0 * n, stream)
-        _build.check(err, "mxu_round_cuda")
-        gemm_bits_mxu_cuda.round_launches += 1
+        _classes_turn(ops, r0, rr, cls)
+        _round_turn(ops, r0, rr, cls, c_bits, mode, beta, nl, rel0, out)
 
 
 def gemm_bits_mxu_cuda(z_bits, b_bits, c_bits, beta_bits: int,
@@ -390,11 +405,13 @@ def gemm_bits_mxu_cuda(z_bits, b_bits, c_bits, beta_bits: int,
     mode, beta = _beta_code(beta_bits, beta_mode)
     if mode:
         check_cuda_bits(c_bits, "gemm_bits_mxu_cuda", (m, n))
-    ops = mxu_operands_cuda(z_bits, b_bits, sa, sb, ea, fb)
+    with profiling.annotate("exblas.gemm.digits"):
+        ops = mxu_operands_cuda(z_bits, b_bits, sa, sb, ea, fb)
     out = torch.empty((m, n), dtype=torch.int64, device=z_bits.device)
     if m * n == 0:
         return out
-    with torch.cuda.device(z_bits.device):
+    with torch.cuda.device(z_bits.device), profiling.annotate(
+            "exblas.gemm.classes"):
         if (sa, sb) == (8, 8):
             _gemm88_cuda(ops, c_bits, mode, beta, out)
         else:

@@ -29,6 +29,7 @@ import torch
 from ...core.accumulator import MAX_TERMS, check_n_terms
 from ...core.rounding import SIGN_BIT
 from ...core.types import L_DOT, N_SPECIAL
+from ...utils import profiling
 from ..exgemv import dot_rows_acc
 from . import _build
 from ._build import ptr, stream_of
@@ -101,6 +102,7 @@ def row_geometry(m: int, k: int, sms: int) -> RowGeometry:
     return RowGeometry(warps, -(-m // warps), -(-k // span), span)
 
 
+@profiling.spanned("exblas.launch.gemv_rows_acc_cuda")
 def gemv_rows_acc_cuda(a_bits, z_bits, negate_z: bool = False):
     """Exact per-row accumulators of CUDA bit tensors a (m, k) and z (k,)
     -> (limbs int64 (m, 216), special int64 (m, 3)) on the device."""

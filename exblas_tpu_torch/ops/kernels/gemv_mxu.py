@@ -48,6 +48,7 @@ import torch
 from ...core.rounding import (canonicalize_digits, rel_limbs_to_abs_limbs,
                               round_digits_to_f64_bits)
 from ...core.types import DOT_FORMAT, LIMB_BITS, LIMB_MASK, N_SPECIAL
+from ...utils import profiling
 from ..exgemv import _GEMV_RUNGS, _apply_beta_rows, round_rows
 from . import _build
 from ._build import ptr, stream_of
@@ -119,6 +120,7 @@ def analyze_gemv_rows_torch(a_bits):
     return (ea.to(torch.int32), spread.to(torch.int32), special.any())
 
 
+@profiling.spanned("exblas.launch.gemv_analyze_cuda")
 def analyze_gemv_rows_cuda(a_bits):
     """Kernel B8 on a contiguous CUDA int64 tensor a (m, k), k >= 1: one
     pass over A, then one over the rows.  Returns what
@@ -235,6 +237,28 @@ def gemv_bits_mxu_torch(a_bits, z_bits, ea, f, y_bits, beta_bits: int,
     return round_rows(limbs, special)
 
 
+@profiling.spanned("exblas.launch.gemv_mxu_classes_cuda")
+def _gemv_classes(a_bits, ea32, zd, k_pad: int, nwa: int, nwz: int,
+                  cls) -> None:
+    """The class kernel of :func:`gemv_bits_mxu_cuda`."""
+    m, k = a_bits.shape
+    err = _build.library().gemv_mxu_classes_cuda(
+        ptr(a_bits), ptr(ea32), ptr(zd), m, k, k_pad, nwa, nwz, K_CHUNK,
+        ptr(cls), stream_of(cls.device))
+    _build.check(err, "gemv_mxu_classes_cuda")
+
+
+@profiling.spanned("exblas.launch.gemv_mxu_round_cuda")
+def _gemv_round(cls, ea32, f32, y_bits, beta: int, mode: int, nl: int,
+                r0: int, out) -> None:
+    """The rounding kernel of :func:`gemv_bits_mxu_cuda`."""
+    err = _build.library().gemv_mxu_round_cuda(
+        ptr(cls), cls.shape[1], ptr(ea32), ptr(f32),
+        ptr(y_bits) if mode else None, beta, mode, cls.shape[0], nl, r0,
+        ptr(out), stream_of(cls.device))
+    _build.check(err, "gemv_mxu_round_cuda")
+
+
 def gemv_bits_mxu_cuda(a_bits, z_bits, ea, f, y_bits, beta_bits: int,
                        beta_mode: str, nwa: int, nwz: int) -> torch.Tensor:
     """Exact y = A @ z (+ beta * y) of covered CUDA bit tensors a (m, k),
@@ -270,17 +294,9 @@ def gemv_bits_mxu_cuda(a_bits, z_bits, ea, f, y_bits, beta_bits: int,
     ea32 = ea.to(torch.int32).contiguous()
     f32 = f.to(torch.int32).reshape(1)
     cls = torch.zeros((m, ns + nz), dtype=torch.int64, device=dev)
-    lib = _build.library()
-    stream = stream_of(dev)
     with torch.cuda.device(dev):
-        err = lib.gemv_mxu_classes_cuda(ptr(a_bits), ptr(ea32), ptr(zd), m,
-                                        k, k_pad, nwa, nwz, K_CHUNK,
-                                        ptr(cls), stream)
-        _build.check(err, "gemv_mxu_classes_cuda")
-        err = lib.gemv_mxu_round_cuda(ptr(cls), ns + nz, ptr(ea32), ptr(f32),
-                                      ptr(y_bits) if mode else None, beta,
-                                      mode, m, nl, r0, ptr(out), stream)
-        _build.check(err, "gemv_mxu_round_cuda")
+        _gemv_classes(a_bits, ea32, zd, k_pad, nwa, nwz, cls)
+        _gemv_round(cls, ea32, f32, y_bits, beta, mode, nl, r0, out)
     gemv_bits_mxu_cuda.launches += 1
     return out
 

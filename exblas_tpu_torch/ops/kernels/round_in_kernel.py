@@ -34,6 +34,7 @@ import torch
 
 from ...core.rounding import canonicalize_digits, round_digits_to_f64_bits
 from ...core.types import LIMB_BITS, LIMB_MASK, SUM_FORMAT
+from ...utils import profiling
 from . import _build
 from ._build import ptr, stream_of
 
@@ -101,6 +102,7 @@ def round_scaled_terms_torch(vals: torch.Tensor, bits_pos, e_adjust,
                                     offset_bits=-e)
 
 
+@profiling.spanned("exblas.launch.round_terms_cuda")
 def round_scaled_terms_cuda(vals: torch.Tensor, bits_pos, e_adjust,
                             e_offset: int = 0) -> torch.Tensor:
     """Kernel B3: the correctly rounded binary64 bits of sum_t vals[t] *

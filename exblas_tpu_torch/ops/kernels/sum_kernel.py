@@ -23,6 +23,7 @@ import torch
 from ...core.accumulator import accumulate_sum_terms, check_n_terms
 from ...core.rounding import round_superacc_to_f64_bits
 from ...core.types import L_SUM, N_SPECIAL, SUM_FORMAT, Superacc
+from ...utils import profiling
 from . import _build
 from ._build import check_cuda_f64, ptr, stream_of
 
@@ -31,6 +32,7 @@ from ._build import check_cuda_f64, ptr, stream_of
 _WS = L_SUM + N_SPECIAL + 1
 
 
+@profiling.spanned("exblas.launch.exsum_acc_cuda")
 def exsum_acc_cuda(x: torch.Tensor) -> Superacc:
     """Exact sum of a CUDA float64 tensor -> Superacc (canonical limbs)."""
     check_cuda_f64(x, "exsum_acc_cuda")
@@ -49,6 +51,7 @@ def exsum_acc_cuda(x: torch.Tensor) -> Superacc:
     return Superacc(limbs=limbs, special=special, fmt=SUM_FORMAT)
 
 
+@profiling.spanned("exblas.launch.exsum_bits_cuda")
 def exsum_bits_cuda(x: torch.Tensor) -> torch.Tensor:
     """Exact, correctly rounded sum of a CUDA float64 tensor -> binary64
     bits as a 0-dim int64 tensor on the device."""

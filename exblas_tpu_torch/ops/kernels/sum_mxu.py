@@ -41,6 +41,7 @@ import torch
 from ...core.ieee import f64_bits
 from ...core.rounding import rel_limbs_to_abs_limbs
 from ...core.types import SUM_FORMAT
+from ...utils import profiling
 from . import _build
 from ._build import check_cuda_f64, ptr, stream_of
 from .round_in_kernel import (round_scaled_terms_torch, term_limbs_count,
@@ -90,15 +91,18 @@ def _top16(x: torch.Tensor) -> torch.Tensor:
 _EXP16 = 0x7FF0          # the exponent field within the top 16 bits
 
 
-def _anchor_spread(top16: torch.Tensor):
+def _anchor_spread(top16: torch.Tensor, cause: str):
     """(anchor, spread) as ints: anchor = the largest exponent field -
     1023 + slack; spread = anchor - the smallest lsb exponent over
     exponent fields >= 1, + 1, or 61 when every exponent field is 0 (zeros
-    and subnormals fit any window).  One host synchronization."""
+    and subnormals fit any window).  One host synchronization, counted
+    under ``cause``."""
     e16 = top16 & _EXP16
     # exponent field 0 maps to 2047 here, above every other field's - 1
     stats = torch.stack([e16.amax(), ((e16 - 16) & _EXP16).amin()])
-    emax, emin1 = (v >> 4 for v in stats.tolist())
+    with profiling.host_sync(cause):
+        stats = stats.tolist()
+    emax, emin1 = (v >> 4 for v in stats)
     anchor = emax - 1023 + _ANCHOR_SLACK
     if emin1 == 2047:
         return anchor, 61
@@ -118,13 +122,13 @@ def sample_anchor(x: torch.Tensor):
         body = x[:nch * _SAMPLE_CHUNK].view(nch, _SAMPLE_CHUNK)
         x = torch.cat([body[::_SAMPLE_STRIDE],
                        x[-_SAMPLE_CHUNK:].view(1, _SAMPLE_CHUNK)])
-    return _anchor_spread(_top16(x))
+    return _anchor_spread(_top16(x), "spread")
 
 
 def full_anchor(x: torch.Tensor):
     """Exact (anchor, spread) in :func:`sample_anchor`'s convention: one
     pass over every element."""
-    return _anchor_spread(_top16(x.reshape(-1)))
+    return _anchor_spread(_top16(x.reshape(-1)), "guard")
 
 
 def resolve_anchor(x: torch.Tensor, e_est: int, spread_est: int,
@@ -167,6 +171,7 @@ def _check_anchor(anchor, device: torch.device, name: str) -> None:
                          f"tensor on {device}")
 
 
+@profiling.spanned("exblas.launch.sum_flat_cuda")
 def _sum_flat_ws(x: torch.Tensor, anchor: torch.Tensor, nwa: int):
     """One launch of kernel B11; its workspace (nwa + 4 int64): the terms,
     the flag, the bits of the rounded sum, the ticket."""

@@ -24,6 +24,7 @@ import torch
 
 from ...core.accumulator import MAX_TERMS, check_n_terms
 from ...core.types import L_DOT, N_SPECIAL
+from ...utils import profiling
 from ..extrsv import _deposit_b, solve_panel
 from . import _build
 from ._build import ptr, stream_of
@@ -41,6 +42,7 @@ PHASES = ("wait", "deposit", "rounding", "divide", "publish")
 _FLAGS = 1 + 8  # the next panel tile, then 8 stamp slots (5 used)
 
 
+@profiling.spanned("exblas.launch.trsv_lower_x_cuda")
 def _launch(t_bits, b_bits, unit: bool, block: int, parts: str):
     """x's bits and the stamp slots of one launch (see module doc)."""
     n = b_bits.shape[0]
