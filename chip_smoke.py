@@ -41,8 +41,10 @@ slice of the port:
   B12;
 * ExGEMM: holds the exact kernel and the int8 slice kernel bit for bit
   against their plain versions on five shapes, ten distributions, every
-  beta mode, both transposes and four rungs, and the exact kernel also on
-  600-binade pairs of ragged shapes (k = 1 included) in every beta mode,
+  beta mode, both transposes and the rungs up to (16, 16) and (40, 40)
+  (each ``wgmma`` rung also over several k chunks), and the exact kernel
+  also on 600-binade pairs of ragged shapes (k = 1 included) in every
+  beta mode,
   on signed data whose sums change sign (600 binades, tiny zero-mean
   products, alternating signs) and on a tall shape of more than 2^20 rows;
   drives ``exgemm`` at n = 4096 on the benchmark data (rung (8, 8), the
@@ -1263,9 +1265,13 @@ GEMM_DISTS = ("narrow", "mixed", "wide", "very_wide", "subnormal",
               "inf_times_zero", "both_inf")
 # covered data without specials: the slice kernel must give B5's bits
 GEMM_COVERED = ("narrow", "mixed", "wide", "very_wide", "overflow", "edge")
-# rung (8, 8) with k above one exact chunk (two launches and their words)
-B6_LONG_K = (257, 8192 + 33, 129)
-GEMM_RUNGS = ((8, 8), (8, 12), (16, 16), (40, 40))
+# rungs (8, 8) and (16, 16) with k above one exact chunk (two launches
+# and their words), on distributions each covers
+B6_LONG_K = (((8, 8), (257, 8192 + 33, 129), ("narrow", "edge")),
+             ((16, 16), (129, 2 * 4096 + 65, 65), ("edge", "wide")))
+# rungs held besides every wgmma rung of gemm_mxu.WG_RUNGS: wg88's and one
+# of the mma.sync class kernel
+GEMM_RUNGS = ((8, 8), (40, 40))
 # B5's tile is 16 x 16 and its k chunk 32: ragged shapes, k = 1 included
 B5_WIDE_SHAPES = ((33, 1, 47), (40, 65, 31), (70, 300, 50))
 # signed data whose sums change sign, which B5's biased words must absorb
@@ -1420,7 +1426,7 @@ def phase_gemm_kernels(xt) -> dict:
             lo, hi = (_c_cover_bounds(zc, bb, ea0, fb0) if mode != "zero"
                       else (torch.tensor(0), torch.tensor(0)))
             sp_a, sp_b, lo, hi = (int(sp_a), int(sp_b), int(lo), int(hi))
-            for sa, sb in GEMM_RUNGS:
+            for sa, sb in (GEMM_RUNGS[0], *gm.WG_RUNGS, *GEMM_RUNGS[1:]):
                 if not (sp_a <= 8 * sa and sp_b <= 8 * sb
                         and _mxu_c_cover(lo, hi, sa, sb)):
                     continue  # uncovered: the dispatcher never sends it
@@ -1444,11 +1450,12 @@ def phase_gemm_kernels(xt) -> dict:
                     failures.append(f"B6 != B5 ({sa},{sb}) {m}x{k}x{n} "
                                     f"{dist}")
                 if si == len(GEMM_SHAPES) - 1:
-                    # rung (8, 8) one launch a chunk of 64 k, its words
-                    # carried between launches; the other rungs' class
-                    # sums in turns of 64 rows, as a large m x n takes them
-                    name, small = (("K_CHUNK", 64) if (sa, sb) == (8, 8)
-                                   else ("CLS_BYTES", 1))
+                    # the wgmma rungs one launch a chunk of 64 k, their
+                    # words carried between launches; the wider rungs'
+                    # class sums in turns of 64 rows, as a large m x n
+                    # takes them
+                    wg = (sa, sb) == (8, 8) or (sa, sb) in gm.WG_RUNGS
+                    name, small = ("K_CHUNK", 64) if wg else ("CLS_BYTES", 1)
                     whole = getattr(gm, name)
                     setattr(gm, name, small)
                     try:
@@ -1474,23 +1481,27 @@ def phase_gemm_kernels(xt) -> dict:
                 failures.append(f"public {m}x{k}x{n} {dist} {tr}")
             line.append(f"public {'==' if torch.equal(pk, pp) else '!='}")
             log(" ".join(line))
-    # rung (8, 8) with k above one exact chunk, every beta mode
-    m, k, n = B6_LONG_K
-    for di, dist in enumerate(("narrow", "edge")):
-        a_np, b_np, c_np = gemm_case(dist, m, k, n, SEED + 95 + di)
-        za, zb, zc = cuda_bits(a_np), cuda_bits(b_np), cuda_bits(c_np)
-        for mode, beta in BETA_MODES:
-            bb = s64(beta)
-            mk = gm.gemm_bits_mxu_cuda(za, zb, zc, bb, mode, 8, 8)
-            e = mismatch_err(mk, gm.gemm_bits_mxu_torch(za, zb, zc, bb, mode,
-                                                        8, 8))
-            errs["gemm_bits_mxu_cuda"] = max(errs["gemm_bits_mxu_cuda"], e)
-            same5 = torch.equal(mk, gk.gemm_bits_cuda(za, zb, zc, bb, mode))
-            log(f"B6 (8, 8) {m}x{k}x{n} {dist} {mode} (k above one chunk of "
-                f"{gm.K_CHUNK}): {'==' if e == 0 else '!='} plain, "
-                f"{'==' if same5 else '!='} B5")
-            if e != 0 or not same5:
-                failures.append(f"B6 (8, 8) {m}x{k}x{n} {dist} {mode}")
+    # k above one exact chunk, every beta mode
+    for (sa, sb), (m, k, n), dists in B6_LONG_K:
+        for di, dist in enumerate(dists):
+            a_np, b_np, c_np = gemm_case(dist, m, k, n, SEED + 95 + di)
+            za, zb, zc = cuda_bits(a_np), cuda_bits(b_np), cuda_bits(c_np)
+            for mode, beta in BETA_MODES:
+                bb = s64(beta)
+                mk = gm.gemm_bits_mxu_cuda(za, zb, zc, bb, mode, sa, sb)
+                e = mismatch_err(mk, gm.gemm_bits_mxu_torch(
+                    za, zb, zc, bb, mode, sa, sb))
+                errs["gemm_bits_mxu_cuda"] = max(errs["gemm_bits_mxu_cuda"],
+                                                 e)
+                same5 = torch.equal(mk, gk.gemm_bits_cuda(za, zb, zc, bb,
+                                                          mode))
+                log(f"B6 ({sa}, {sb}) {m}x{k}x{n} {dist} {mode} (k above one "
+                    f"chunk of {gm.wg_chunk(sa, sb)}): "
+                    f"{'==' if e == 0 else '!='} plain, "
+                    f"{'==' if same5 else '!='} B5")
+                if e != 0 or not same5:
+                    failures.append(f"B6 ({sa}, {sb}) {m}x{k}x{n} {dist} "
+                                    f"{mode}")
     n_wide = 0
     for si, (m, k, n) in enumerate(B5_WIDE_SHAPES):
         # a 600-binade pair: no rung covers it, so only B5 ever takes it
@@ -1543,10 +1554,10 @@ def phase_gemm_kernels(xt) -> dict:
     log(f"GEMM kernels vs plain versions: bit-equal (tolerance 0) on "
         f"{len(GEMM_SHAPES)} shapes x {len(GEMM_DISTS)} distributions, "
         f"{n_rungs} slice-kernel rung runs ({n_turns} of them again with a "
-        f"chunk of 64 k at rung (8, 8), in turns of {gm.ROW_TILE} rows at "
-        f"the others), B6 at {B6_LONG_K} in every beta mode; B5 also on "
-        f"{n_wide} 600-binade "
-        f"and signed {B5_SIGNED} cases (shapes {B5_WIDE_SHAPES}, every "
+        f"chunk of 64 k at rungs up to (16, 16), in turns of {gm.ROW_TILE} "
+        f"rows at the wider ones), B6 with k above one chunk "
+        f"({[(r, s) for r, s, _ in B6_LONG_K]}) in every beta mode; B5 also "
+        f"on {n_wide} 600-binade and signed {B5_SIGNED} cases (shapes {B5_WIDE_SHAPES}, every "
         f"beta mode; no rung taken by 600 binades where k > 1) and at "
         f"{B5_TALL} (m x k x n, {-(-B5_TALL[0] // 16)} row tiles)")
     return errs
@@ -1609,6 +1620,7 @@ def phase_gemm_public(xt, bench) -> tuple[dict, dict]:
     log("GEMM launches on the main path:", launches)
     if launches != {"gemm_bits_cuda": 1, "gemm_bits_mxu_cuda": 2}:
         raise AssertionError(f"unexpected GEMM launches {launches}")
+    check_gemm_range50(xt)
 
     # n = 4096, the benchmark data: rung (8, 8), as B5 gives it, as exact
     # host values give it, and as a permutation of k gives it
@@ -1684,6 +1696,49 @@ def phase_gemm_public(xt, bench) -> tuple[dict, dict]:
     return launches, errs
 
 
+def check_gemm_range50(xt) -> None:
+    """``exgemm`` at n = 4096 on exponents in [0, 50) (the benchmark's
+    range50 traffic): rung (16, 16) on the wgmma kernel alone, one launch
+    (k = 4096 is one exact chunk), no int64 class-sum buffer and no
+    rounding kernel; bit-equal to B5 and to 64 exact host values."""
+    from exblas_tpu_torch.ops.exgemm import plan_gemm
+    from exblas_tpu_torch.ops.kernels import gemm_kernel as gk
+    from exblas_tpu_torch.ops.kernels import gemm_mxu as gm
+
+    w = gm.gemm_bits_mxu_cuda
+    data = [xt.init_fpuniform_matrix(N_GEMM, N_GEMM, 50, 0, seed=s)
+            for s in (21, 22, 23)]
+    a, b, c = (torch.from_numpy(x).cuda() for x in data)
+    ab, bbits, cb = (x.view(torch.int64) for x in (a, b, c))
+    plan = plan_gemm(ab, bbits, cb, ONE_BITS, "one")
+    if plan.rung != (16, 16) or plan.override:
+        raise AssertionError(f"range50 n={N_GEMM}: plan {plan.rung}, "
+                             f"override {plan.override}")
+    before = (w.class_buffers, w.round_launches, w.wg_launches)
+    bits = xt.exgemm_bits("N", "N", 1.0, a, b, beta=1.0, c=c)
+    torch.cuda.synchronize()
+    moved = tuple(x - y for x, y in zip(
+        (w.class_buffers, w.round_launches, w.wg_launches), before))
+    if moved != (0, 0, 1):
+        raise AssertionError(f"range50 n={N_GEMM}: class buffers, rounding "
+                             f"and wgmma launches moved by {moved}, not "
+                             "(0, 0, 1)")
+    if not torch.equal(bits, gk.gemm_bits_cuda(ab, bbits, cb, ONE_BITS,
+                                               "one")):
+        raise AssertionError(f"range50 n={N_GEMM}: slice kernel != exact "
+                             "kernel")
+    rs = np.random.RandomState(SEED + 55)
+    got = bits.cpu().numpy()
+    for i, j in zip(rs.randint(0, N_GEMM, 64), rs.randint(0, N_GEMM, 64)):
+        want = exact_dot_host(data[0][i, :], data[1][:, j], [data[2][i, j]])
+        if int(got[i, j]) != s64(want):
+            raise AssertionError(f"range50 C[{i},{j}]: {got[i, j]:#x} != "
+                                 f"exact {want!r}")
+    log(f"exgemm n={N_GEMM} range50: rung (16, 16), one wgmma launch, no "
+        "int64 class-sum buffer, no rounding-kernel launch; bit-equal to "
+        "the exact kernel (all 16.7M elements) and to 64 exact host values")
+
+
 def check_empty_gemm(xt) -> None:
     """An empty m, n or k (ROADMAP queue C, C3): the rounded beta*C alone
     (zeros without C, an empty array for m or n = 0).  At k = 0 B5 runs
@@ -1750,10 +1805,15 @@ def mxu_resources(kind: str) -> None:
     int8 kernels of ``kind``, as the runtime reports them; a spill fails
     the run."""
     from exblas_tpu_torch.ops.kernels import _build
+    from exblas_tpu_torch.ops.kernels.gemm_mxu import WG_RUNGS
 
     lib = _build.library()
     out = torch.zeros(4, dtype=torch.int32)
-    for src, which, name in MXU_KERNELS[kind]:
+    kernels = MXU_KERNELS[kind]
+    if kind == "gemm":  # gemm_mxu_attrs 3 + i: the class kernel of rung i
+        kernels += tuple(("gemm_mxu", 3 + i, f"B6 class kernel, rung {r}")
+                         for i, r in enumerate(WG_RUNGS))
+    for src, which, name in kernels:
         _build.check(getattr(lib, f"{src}_attrs")(which, _build.ptr(out)),
                      f"{src}_attrs")
         regs, local, static, dynamic = out.tolist()
@@ -1815,6 +1875,25 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
         ONE_BITS, 1, n, n, None, 1, 1, _build.ptr(outb), stream),
         "mxu_gemm88_cuda"), reps=5, inner=1)
     del outb
+    # rung (16, 16) on exponents in [0, 50): the wgmma kernel with its
+    # epilogue, the whole wrapper, and the mma.sync path it replaced
+    wa, wb, wc = (cuda_bits(xt.init_fpuniform_matrix(n, n, 50, 0, seed=s))
+                  for s in (21, 22, 23))
+    plan16 = plan_gemm(wa, wb, wc, ONE_BITS, "one")
+    ops16 = gm.mxu_operands_cuda(wa, wb, 16, 16, ea=plan16.ea0,
+                                 fb=plan16.fb0)
+    out16 = torch.empty((n, n), dtype=torch.int64, device="cuda")
+    old16 = torch.empty_like(out16)
+    t_wide = time_ms(lambda: gm._gemm_wide_cuda(ops16, wc, 1, ONE_BITS,
+                                                out16), reps=5, inner=1)
+    t_b6_16 = time_ms(lambda: gm.gemm_bits_mxu_cuda(
+        wa, wb, wc, ONE_BITS, "one", 16, 16, ea=plan16.ea0, fb=plan16.fb0),
+        reps=3, inner=1)
+    t_sync16 = time_ms(lambda: gm._gemm_classes_cuda(
+        ops16, wc, 1, ONE_BITS, "one", old16), reps=1, inner=1)
+    if not torch.equal(out16, old16):
+        raise AssertionError("rung (16, 16): wgmma kernel != mma.sync path")
+    del wa, wb, wc, ops16, out16, old16
     t_pub = time_ms(lambda: xt.exgemm_bits("N", "N", 1.0, a, b, beta=1.0,
                                            c=c), reps=3, inner=1)
     t_b5 = time_ms(lambda: gk.gemm_bits_cuda(ab, bbits, cb, ONE_BITS, "one"),
@@ -1849,6 +1928,10 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
     log(f"time n={n} beta=1 bench data [{smi}]:")
     log(f"  B6 gemm_bits_mxu_cuda rung (8, 8): {rate(t_b6)}; class kernel "
         f"with its epilogue (wgmma, rounded from registers) {t_cls:.3f} ms")
+    log(f"  B6 gemm_bits_mxu_cuda rung (16, 16), exponents in [0, 50): "
+        f"{rate(t_b6_16)}; class kernel with its epilogue (wgmma) "
+        f"{t_wide:.3f} ms, bit-equal to the mma.sync class and rounding "
+        f"kernels' {t_sync16:.3f} ms")
     log(f"  B6 preparation (analysis, digits): {t_prep:.3f} ms; the digit "
         f"kernel alone (anchors given): {t_digits:.3f} ms (A {t_dig_a:.4f} "
         f"ms, B with its transposed copy {t_dig_b:.4f} ms); the plain "
@@ -1879,10 +1962,12 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
     ops8 = 2.0 * 81 * n ** 3
     bytes6 = 18.0 * n * n + 16.0 * n * n
     b6_ops, b6_bytes = ops8 / INT8_OPS * 1e3, bytes6 / HBM_BYTES * 1e3
+    b6_16 = 2.0 * 289 * n ** 3 / INT8_OPS * 1e3
     b5_issue = B5_INT_OPS * n ** 3 / (INT32_LANES * sms * clock) * 1e3
     b5_bytes = 32.0 * n * n / HBM_BYTES * 1e3
     log(f"bounds n={n}: B6 {b6_ops:.3f} ms by int8 operations "
-        f"({b6_bytes:.3f} ms by bytes); B5 {B5_INT_OPS} int32 operations "
+        f"({b6_bytes:.3f} ms by bytes), at (16, 16) {b6_16:.3f} ms; B5 "
+        f"{B5_INT_OPS} int32 operations "
         f"per product -> {b5_issue:.3f} ms at {INT32_LANES} per clock per "
         f"SM on {sms} SMs at {clock / 1e6:.0f} MHz ({b5_bytes:.3f} ms by "
         f"bytes)")
@@ -1893,7 +1978,8 @@ def phase_gemm_timing(xt, smi: str, bench) -> dict:
         bound_by="operations" if b5_issue >= b5_bytes else "bytes",
         library_ms=t_lib, shape=shape, plain_shape=[pm, pk, pn])
     out["gemm_bits_mxu_cuda"] = dict(
-        ms=t_b6, plain_ms=t_p6, bound_ms=max(b6_ops, b6_bytes),
+        ms=t_b6, ms_rung16=t_b6_16, bound_ms_rung16=b6_16,
+        plain_ms=t_p6, bound_ms=max(b6_ops, b6_bytes),
         bound_by="operations" if b6_ops >= b6_bytes else "bytes",
         library_ms=t_lib, shape=shape, plain_shape=[pm, pk, pn])
     return out

@@ -46,10 +46,7 @@ __all__ = ["exgemm", "exgemm_bits", "gemm_acc", "plan_gemm"]
 
 # (sa, sb) slice-count rungs, ordered by cost (sa+1)*(sb+1): the cheapest
 # pair with spread_a <= 8*sa, spread_b <= 8*sb and beta*C coverage wins.
-_MXU_LADDER = ((8, 8), (8, 12), (12, 8), (8, 16), (16, 8),
-               (12, 12), (12, 16), (16, 12), (16, 16),
-               (16, 20), (20, 16), (20, 20), (24, 24), (28, 28), (32, 32),
-               (40, 40), (48, 48))
+_MXU_LADDER = gemm_mxu.MXU_LADDER
 # k above this runs the exact kernel (the JAX package's cap, kept so that
 # both packages route alike).
 MXU_K_CAP = (1 << 22) - 2048

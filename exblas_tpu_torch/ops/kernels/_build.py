@@ -43,6 +43,8 @@ SIGNATURES = {
     "mxu_classes_cuda": (_P, _P, _I, _I, _N, _N, _N, _N, _N, _N, _P, _P),
     "mxu_gemm88_cuda": (_P, _P, _N, _N, _N, _N, _N, _P, _P, _P, _N, _I, _N,
                         _N, _P, _I, _I, _P, _P),
+    "mxu_gemm_wide_cuda": (_P, _P, _I, _I, _N, _N, _N, _N, _N, _P, _P, _P,
+                           _N, _I, _N, _N, _P, _I, _I, _P, _P),
     "gemm_mxu_attrs": (_I, _P),
     "gemv_mxu_attrs": (_I, _P),
     "mxu_digits_cuda": (_P, _N, _N, _P, _I, _N, _N, _P, _P),

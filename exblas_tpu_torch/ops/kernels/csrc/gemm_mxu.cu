@@ -41,7 +41,33 @@
 //     once (kulisch.cuh round_window); a k of more than one chunk keeps
 //     its words in device memory between launches.  No class sum reaches
 //     device memory;
-//   * every other rung: mxu_class_kernel holds kG = 17 classes in
+//   * rungs (8, 12) to (16, 16) (gemm_mxu.py WG_RUNGS):
+//     wgw::wide_kernel<sa + 1, sb + 1>, built as wg88's: a producer
+//     warpgroup's TMA ring of the tile's sa + 1 A and sb + 1 B^T planes,
+//     and the rounding in the epilogue.  33 classes of a 64 x 16 tile, at
+//     (16, 16), are 264 int32 a thread, over the 232 setmaxnreg leaves, so
+//     the two consumer warpgroups share one 64 x 16 tile and split its
+//     classes: warpgroup 0 the lower half, 1 the rest (17 and 16 classes,
+//     136 and 128 registers), both reading the same A planes and the same
+//     zero-padded B^T stack.  A wider tile would not fit: 33 classes of
+//     64 x 32 outputs are 67,584 int32, more than an SM's registers.  The
+//     price is L2 traffic: A is read once per 16 columns (at n = 4096,
+//     (16, 16), 73 GB, against 19 GB at (8, 8)).  Each half is cut into
+//     windows of about kWidth = 4 classes, one accumulator each: (4, 4, 4,
+//     5) and (4, 4, 4, 4) at (16, 16), 341 block products where 289 are
+//     needed, 81 wgmma a k step.  Of kWidth 8, 5 and 4 (49, 66 and 81
+//     wgmma; 409, 364 and 341 products) 4 measured fastest
+//     (scripts/mxu_variants.py, PERF.md).  The int32 class sums are exact
+//     over exact_chunk(sa, sb) k elements (4096 at (16, 16), 8192 at the
+//     others); a launch covers one chunk.  The epilogue stashes both
+//     warpgroups' sums in the idle ring, and each consumer thread rounds
+//     four elements: their sa + sb + 1 class sums at 8-bit spacing in
+//     kWords 64-bit words (five at (12, 16), (16, 12) and (16, 16), four
+//     at the others: the exact value is below 2^(8(sa+sb) + 38) in units
+//     of 2^(e_base - 8(sa+sb))), the words of the earlier chunks and, in
+//     the last, the exact beta*c, rounded once (kulisch.cuh round_window).
+//     No class sum reaches device memory;
+//   * the rungs above (16, 16): mxu_class_kernel holds kG = 17 classes in
 //     registers per pass over k (blockIdx.z picks the group), int8
 //     mma.sync, int32 sums widened into int64 class sums in device memory
 //     every kc = _spill_run(sa, sb) k elements, and mxu_round_kernel adds
@@ -53,12 +79,12 @@
 //
 // Bound on the H100: the int8 tensor cores.  A rung (sa, sb) does
 // (sa+1)(sb+1) int8 products of m x k x n: at (8, 8) and n = 4096 that is
-// 1.1e13 operations, 5.6 ms at 1,979 TOP/s, while the digit planes, C and
-// the result move 0.57 GB (0.17 ms of HBM).  Only wgmma reaches the full
-// rate; its tile is bounded by the registers (17 classes of a 64 x 16
-// warpgroup tile are 136 a thread).  Consecutive blocks take groups of
-// kGroupM row tiles across the column tiles, so that the blocks in flight
-// share their planes in L2.
+// 1.1e13 operations, 5.6 ms at 1,979 TOP/s (at (16, 16) 20.3 ms), while
+// the digit planes, C and the result move 0.57 GB (0.17 ms of HBM).  Only
+// wgmma reaches the full rate; its tile is bounded by the registers (17
+// classes of a 64 x 16 warpgroup tile are 136 a thread).  Consecutive
+// blocks take groups of kGroupM row tiles across the column tiles, so that
+// the blocks in flight share their planes in L2.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -450,6 +476,357 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace wg88
 
 // ---------------------------------------------------------------------------
+// Rungs (8, 12) to (16, 16): wgmma with TMA-fed stages, the classes split
+// between two warpgroups, rounded in the epilogue
+// ---------------------------------------------------------------------------
+namespace wgw {
+
+using u64 = unsigned long long;
+constexpr int kBM = 64;                   // block rows: one wgmma M
+constexpr int kBN = 16;                   // block columns, a class's wgmma N
+constexpr int kBK = 32;                   // k per stage: one wgmma K
+constexpr int kPlaneA = kBM * kBK;        // bytes of one A plane's tile
+constexpr int kPlaneB = kBN * kBK;        // bytes of one B^T plane's tile
+constexpr int kWidth = 4;                 // classes a window aims at
+constexpr int kThreads = 384;             // two consumer warpgroups, TMA
+constexpr int kConsumerWarps = 8;
+constexpr int kGroupM = 8;                // row tiles a group of blocks takes
+constexpr int kSmemBudget = 232448 - 1024 - 256;
+
+// Warpgroup 0 holds the lower half of the classes, 1 the rest: len(n_cls,
+// h) classes from cut(n_cls, h, 0), in parts(len) windows of about kWidth
+// classes and at most 9 (wgmma_s8's widths); window w, classes
+// [cut(h, w), cut(h, w + 1)), shares one accumulator, as wg88's windows do.
+__host__ __device__ constexpr int len(int n_cls, int h) {
+  return h == 0 ? (n_cls + 1) / 2 : n_cls - (n_cls + 1) / 2;
+}
+__host__ __device__ constexpr int parts(int n) {
+  return (n + kWidth / 2) / kWidth > (n + 8) / 9 ? (n + kWidth / 2) / kWidth
+                                                 : (n + 8) / 9;
+}
+__host__ __device__ constexpr int cut(int n_cls, int h, int w) {
+  return (h == 0 ? 0 : len(n_cls, 0)) +
+         len(n_cls, h) * w / parts(len(n_cls, h));
+}
+// The digits s of A (of sa_planes) whose products with the B^T planes (of
+// sb_planes) reach classes [c0, c1).
+__host__ __device__ constexpr int first_s(int sb_planes, int c0) {
+  return c0 - (sb_planes - 1) > 0 ? c0 - (sb_planes - 1) : 0;
+}
+__host__ __device__ constexpr int last_s(int sa_planes, int c1) {
+  return c1 - 1 < sa_planes - 1 ? c1 - 1 : sa_planes - 1;
+}
+// The lowest (top = 0) or highest (top = 1) B^T plane a window reads.
+__host__ __device__ constexpr int plane_edge(int sa_planes, int sb_planes,
+                                             int top) {
+  const int n_cls = sa_planes + sb_planes - 1;
+  int t = top ? sb_planes - 1 : 0;
+  for (int h = 0; h < 2; ++h) {
+    for (int w = 0; w < parts(len(n_cls, h)); ++w) {
+      const int c0 = cut(n_cls, h, w), c1 = cut(n_cls, h, w + 1);
+      const int v = top ? c1 - 1 - first_s(sb_planes, c0)
+                        : c0 - last_s(sa_planes, c1);
+      t = (top ? v > t : v < t) ? v : t;
+    }
+  }
+  return t;
+}
+
+// Rung (SA - 1, SB - 1): SA digit planes of A, SB of B^T.
+template <int SA, int SB>
+struct Rung {
+  static constexpr int kCls = SA + SB - 1;
+  static constexpr int kRel0 = 8 * (kCls - 1);  // class 0's relative bit
+  // |exact value| < 2^(kRel0 + 38) (k below 2^22, beta*c at most
+  // MXU_BETA_HEAD = 36 bits above the anchor): words of two's complement.
+  static constexpr int kWords = (kRel0 + 39 + 63) / 64;
+  static constexpr int kTLo = plane_edge(SA, SB, 0);  // the B^T stack holds
+  static constexpr int kZPlanes = plane_edge(SA, SB, 1) - kTLo + 1;  // kTLo..
+  static constexpr int kStageBytes = SA * kPlaneA + kZPlanes * kPlaneB;
+  static constexpr int kTmaBytes = SA * kPlaneA + SB * kPlaneB;
+  static constexpr int kStages = kSmemBudget / kStageBytes < 8
+                                     ? kSmemBudget / kStageBytes : 8;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+  static_assert(kStages >= 2, "a ring of two stages at least");
+  static_assert(kCls * 8 * 128 * 4 <= kStages * kStageBytes,
+                "the epilogue's class sums fit in the ring");
+  static_assert(2 * kWords > kRel0 / 32, "class 0 lands in the words");
+};
+
+// The wgmma of warpgroup H's windows W.. for one k step: A's planes at
+// a_addr, the zero-padded B^T stack (planes kTLo..) at z; acc holds the
+// warpgroup's classes from cut(H, 0) on, 8 registers each.
+template <int SA, int SB, int H, int W>
+__device__ __forceinline__ void window_products(int* acc, unsigned a_addr,
+                                                unsigned z) {
+  constexpr int n_cls = SA + SB - 1;
+  if constexpr (W < parts(len(n_cls, H))) {
+    constexpr int c0 = cut(n_cls, H, W);
+    constexpr int c1 = cut(n_cls, H, W + 1);
+    constexpr int s0 = first_s(SB, c0);
+    constexpr int s1 = last_s(SA, c1);
+#pragma unroll
+    for (int s = s0; s <= s1; ++s) {
+      exblas::wgmma_s8<16 * (c1 - c0)>(
+          acc + 8 * (c0 - cut(n_cls, H, 0)),
+          exblas::wgmma_desc_sw32(a_addr + s * kPlaneA),
+          exblas::wgmma_desc_sw32(z + (c0 - s - Rung<SA, SB>::kTLo) *
+                                          kPlaneB));
+    }
+    window_products<SA, SB, H, W + 1>(acc, a_addr, z);
+  }
+}
+
+// Consumer warpgroup H: its classes' sums over the launch's k steps, then
+// stashed in the ring (class c, register e of thread j at
+// [(8 c + e) * 128 + j]) once both warpgroups are done with it.
+template <int SA, int SB, int H>
+__device__ __forceinline__ void consume(unsigned char* smem, u64* full,
+                                        u64* empty, int steps) {
+  using R = Rung<SA, SB>;
+  constexpr int c_lo = cut(R::kCls, H, 0);
+  constexpr int n_acc = 8 * len(R::kCls, H);
+  int acc[n_acc];
+#pragma unroll
+  for (int i = 0; i < n_acc; ++i) acc[i] = 0;
+  const unsigned base = exblas::smem_u32(smem);
+  for (int step = 0; step < steps; ++step) {
+    const int st = step % R::kStages;
+    exblas::mbar_wait(full + st, (step / R::kStages) & 1);
+    const unsigned a_addr = base + st * R::kStageBytes;
+    exblas::wgmma_fence();
+    window_products<SA, SB, H, 0>(acc, a_addr, a_addr + SA * kPlaneA);
+    exblas::wgmma_commit();
+    // The previous step's products are done: its stage may be refilled.
+    exblas::wgmma_wait<1>();
+    if (step > 0 && (threadIdx.x & 31) == 0) {
+      exblas::mbar_arrive(empty + (step - 1) % R::kStages);
+    }
+  }
+  exblas::wgmma_wait<0>();
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  int* stash = reinterpret_cast<int*>(smem) + (threadIdx.x & 127);
+#pragma unroll
+  for (int i = 0; i < n_acc; ++i) stash[(8 * c_lo + i) * 128] = acc[i];
+}
+
+// The NW words (two's complement, unit 2^(e_base - rel0)) of
+// sum_c M_c * 2^(rel0 - 8c) from the stashed class sums s[c * 1024]:
+// int64 sums at 32-bit spacing, four classes each, then one carry pass.
+template <int NCLS, int NW>
+__device__ __forceinline__ void class_words(const int* s, u64 (&w)[NW]) {
+  long long t[2 * NW];
+#pragma unroll
+  for (int i = 0; i < 2 * NW; ++i) t[i] = 0;
+#pragma unroll
+  for (int c = 0; c < NCLS; ++c) {
+    const int p = 8 * (NCLS - 1 - c);
+    t[p >> 5] += static_cast<long long>(s[c * 1024]) * (1LL << (p & 31));
+  }
+  long long x = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    x += t[2 * i];
+    const unsigned lo = static_cast<unsigned>(x);
+    x = (x >> 32) + t[2 * i + 1];
+    const unsigned hi = static_cast<unsigned>(x);
+    x >>= 32;
+    w[i] = lo | (static_cast<u64>(hi) << 32);
+  }
+}
+
+// w += x (mod 2^(64 NW)).
+template <int NW>
+__device__ __forceinline__ void add_words(u64 (&w)[NW], const u64 (&x)[NW]) {
+  u64 carry = 0ULL;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const u64 s = w[i] + x[i];
+    const u64 c1 = s < x[i] ? 1ULL : 0ULL;
+    w[i] = s + carry;
+    carry = c1 + (w[i] < carry ? 1ULL : 0ULL);
+  }
+}
+
+// x = -x (mod 2^(64 NW)).
+template <int NW>
+__device__ __forceinline__ void negate_words(u64 (&x)[NW]) {
+  u64 carry = 1ULL;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    x[i] = ~x[i] + carry;
+    carry = (carry != 0ULL && x[i] == 0ULL) ? 1ULL : 0ULL;
+  }
+}
+
+// w += beta * c, exact, as wg88::add_beta_c on NW words: where both are
+// finite and nonzero and the product's lsb lies at relative bit
+// 0 <= p < 64 NW; anything else adds nothing.
+template <int NW>
+__device__ __forceinline__ void add_beta_c(u64 (&w)[NW], long long beta,
+                                           long long cv, int rel) {
+  const int eb = static_cast<int>((beta >> 52) & 0x7FF);
+  const int ec = static_cast<int>((cv >> 52) & 0x7FF);
+  u64 mb = static_cast<u64>(beta) & exblas::kFracMask;
+  u64 mc = static_cast<u64>(cv) & exblas::kFracMask;
+  if (eb != 0) mb |= 1ULL << 52;
+  if (ec != 0) mc |= 1ULL << 52;
+  const int p = (eb > 1 ? eb : 1) + (ec > 1 ? ec : 1) - 2150 + rel;
+  if (eb == 0x7FF || ec == 0x7FF || mb == 0ULL || mc == 0ULL || p < 0 ||
+      p >= 64 * NW) {
+    return;
+  }
+  const u64 lo = mb * mc;
+  const u64 hi = __umul64hi(mb, mc);
+  const int s = p & 63;
+  const u64 y0 = lo << s;
+  const u64 y1 = s ? (hi << s) | (lo >> (64 - s)) : hi;
+  const u64 y2 = s ? hi >> (64 - s) : 0ULL;
+  const int q = p >> 6;
+  u64 x[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    x[i] = i == q ? y0 : (i == q + 1 ? y1 : (i == q + 2 ? y2 : 0ULL));
+  }
+  if ((beta ^ cv) < 0) negate_words(x);
+  add_words(w, x);
+}
+
+// The correctly rounded binary64 of NW two's-complement words, bit p of
+// exponent p - offset_bits; an exact zero is +0.0.
+template <int NW>
+__device__ __forceinline__ u64 round_words(u64 (&w)[NW], int offset_bits) {
+  const bool negative = static_cast<long long>(w[NW - 1]) < 0;
+  if (negative) negate_words(w);
+  int t = 0, l = NW;
+  u64 top = 0ULL, below = 0ULL;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    if (w[i] != 0ULL) {
+      t = i;
+      top = w[i];
+      below = i > 0 ? w[i - 1] : 0ULL;
+      if (l == NW) l = i;
+    }
+  }
+  if (l == NW) return 0ULL;
+  return exblas::round_window(negative, t, l, top, below, offset_bits);
+}
+
+// One launch covers k elements [k0, k0 + 32 steps) of every output tile
+// of 64 x 16: the class sums of that chunk, added to the words of the
+// earlier chunks (first == 0: words (kWords, m, n) holds them), then
+// either the words of this chunk (last == 0) or the rounded result
+// (last != 0, with beta * c).
+template <int SA, int SB>
+__global__ void __launch_bounds__(kThreads, 1)
+    wide_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, int k0, int steps,
+                long long m_tiles, long long n_tiles,
+                const int* __restrict__ ea, const int* __restrict__ fb,
+                const long long* __restrict__ c, long long beta,
+                int beta_mode, long long m, long long n,
+                u64* __restrict__ words, int first, int last,
+                long long* __restrict__ out) {
+  using R = Rung<SA, SB>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - (exblas::smem_u32(smem_raw) & 1023u)) & 1023u);
+  u64* full = reinterpret_cast<u64*>(smem + R::kStages * R::kStageBytes);
+  u64* empty = full + R::kStages;
+  // Groups of kGroupM row tiles sweep the column tiles.
+  const long long id = blockIdx.x;
+  const long long per_group = kGroupM * n_tiles;
+  const long long first_m = id / per_group * kGroupM;
+  const long long gm =
+      m_tiles - first_m < kGroupM ? m_tiles - first_m : kGroupM;
+  const long long in_group = id % per_group;
+  const int row0 = static_cast<int>((first_m + in_group % gm) * kBM);
+  const int col0 = static_cast<int>(in_group / gm * kBN);
+  // The warpgroup, warp-uniform for ptxas: setmaxnreg needs that.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7),
+                             0);
+  {  // the zero planes around the B^T stack stay zero
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < R::kStages * R::kStageBytes / 16;
+         i += kThreads) {
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    exblas::fence_proxy_async();
+  }
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < R::kStages; ++st) {
+      exblas::mbar_init(full + st, 1);
+      exblas::mbar_init(empty + st, kConsumerWarps);
+    }
+    exblas::mbar_init_fence();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    // The producer warpgroup: one thread keeps the ring full.
+    exblas::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      exblas::tma_prefetch(&map_a);
+      exblas::tma_prefetch(&map_b);
+      for (int step = 0; step < steps; ++step) {
+        const int st = step % R::kStages;
+        exblas::mbar_wait(empty + st, ((step / R::kStages) & 1) ^ 1);
+        exblas::mbar_expect_tx(full + st, R::kTmaBytes);
+        unsigned char* s = smem + st * R::kStageBytes;
+        const int kk = k0 + step * kBK;
+        exblas::tma_load_3d(s, &map_a, full + st, kk, row0, 0);
+        exblas::tma_load_3d(s + SA * kPlaneA - R::kTLo * kPlaneB, &map_b,
+                            full + st, kk, col0, 0);
+      }
+    }
+  } else {
+    exblas::setmaxnreg_inc<232>();
+    if (wg == 0) {
+      consume<SA, SB, 0>(smem, full, empty, steps);
+    } else {
+      consume<SA, SB, 1>(smem, full, empty, steps);
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // every class stashed
+    // Thread j of a warpgroup (warp wi, lane 4g + tq) held, for register
+    // e, row 16 wi + g + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 tq + (e & 1)
+    // of each class; consumer thread x rounds registers 4 (x >> 7) .. + 3
+    // of thread j = x & 127.
+    const int j = threadIdx.x & 127;
+    const int wi = j >> 5;
+    const int g = (j & 31) >> 2;
+    const int tq = j & 3;
+    const int* stash = reinterpret_cast<const int*>(smem) + j;
+    const long long mn = m * n;
+#pragma unroll 1
+    for (int i = 0; i < 4; ++i) {
+      const int e = 4 * static_cast<int>(threadIdx.x >> 7) + i;
+      const long long row = row0 + wi * 16 + g + ((e & 2) ? 8 : 0);
+      const long long col = col0 + (e >> 2) * 8 + 2 * tq + (e & 1);
+      if (row >= m || col >= n) continue;
+      u64 w[R::kWords];
+      class_words<R::kCls>(stash + e * 128, w);
+      const long long idx = row * n + col;
+      if (!first) {
+        u64 prev[R::kWords];
+#pragma unroll
+        for (int q = 0; q < R::kWords; ++q) prev[q] = words[q * mn + idx];
+        add_words(w, prev);
+      }
+      if (!last) {
+#pragma unroll
+        for (int q = 0; q < R::kWords; ++q) words[q * mn + idx] = w[q];
+        continue;
+      }
+      const int rel = R::kRel0 - (ea[row] + fb[col] + 2);
+      if (beta_mode != 0) add_beta_c(w, beta, c[idx], rel);
+      out[idx] = static_cast<long long>(round_words(w, rel));
+    }
+  }
+}
+
+}  // namespace wgw
+
+// ---------------------------------------------------------------------------
 // The digit planes
 // ---------------------------------------------------------------------------
 
@@ -593,18 +970,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The TMA map of nine digit planes (9, rows_pad, k_pad) int8: boxes of
-// 32 k x box_rows rows x 9 planes in the 32-byte swizzle.
+// The TMA map of n_planes digit planes (n_planes, rows_pad, k_pad) int8:
+// boxes of 32 k x box_rows rows x n_planes planes in the 32-byte swizzle.
 int plane_map(CUtensorMap* map, const void* planes, long long rows_pad,
-              long long k_pad, unsigned box_rows) {
+              long long k_pad, unsigned box_rows, unsigned n_planes) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k_pad),
                               static_cast<cuuint64_t>(rows_pad),
-                              static_cast<cuuint64_t>(wg88::kS)};
+                              static_cast<cuuint64_t>(n_planes)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k_pad),
                                  static_cast<cuuint64_t>(rows_pad * k_pad)};
-  const cuuint32_t box[3] = {wg88::kBK, box_rows, wg88::kS};
+  const cuuint32_t box[3] = {32, box_rows, n_planes};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(planes), dims,
@@ -612,6 +989,54 @@ int plane_map(CUtensorMap* map, const void* planes, long long rows_pad,
       CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The rungs (sa, sb) wgw::wide_kernel is built for, one instance of
+// (sa + 1, sb + 1) planes each, in gemm_mxu.py WG_RUNGS' order: X(sa, sb)
+// for each.  wide_instance and mxu_gemm_wide_cuda's dispatch expand it.
+#define EXBLAS_WG_RUNGS(X) \
+  X(8, 12) X(12, 8) X(8, 16) X(16, 8) X(12, 12) X(12, 16) X(16, 12) X(16, 16)
+
+#define EXBLAS_WG_COUNT(A, B) +1
+constexpr int kNWide = 0 EXBLAS_WG_RUNGS(EXBLAS_WG_COUNT);
+#undef EXBLAS_WG_COUNT
+
+template <int SA, int SB>
+int wide_launch(const void* ad, const void* bd, long long m_pad,
+                long long n_pad, long long k_pad, long long k0,
+                long long k_len, const void* ea, const void* fb,
+                const void* c, long long beta, int beta_mode, long long m,
+                long long n, void* words, int first, int last, void* out,
+                cudaStream_t stream) {
+  using R = wgw::Rung<SA, SB>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgw::wide_kernel<SA, SB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      R::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap map_a, map_b;
+  int err = plane_map(&map_a, ad, m_pad, k_pad, wgw::kBM, SA);
+  if (err == 0) err = plane_map(&map_b, bd, n_pad, k_pad, wgw::kBN, SB);
+  if (err != 0) return err;
+  const long long m_tiles = m_pad / wgw::kBM;
+  const long long n_tiles = n_pad / wgw::kBN;
+  wgw::wide_kernel<SA, SB><<<static_cast<unsigned>(m_tiles * n_tiles),
+                             wgw::kThreads, R::kSmem, stream>>>(
+      map_a, map_b, static_cast<int>(k0), static_cast<int>(k_len / wgw::kBK),
+      m_tiles, n_tiles, static_cast<const int*>(ea),
+      static_cast<const int*>(fb), static_cast<const long long*>(c), beta,
+      beta_mode, m, n, static_cast<unsigned long long*>(words), first, last,
+      static_cast<long long*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of the i-th rung of EXBLAS_WG_RUNGS: its attributes, for
+// gemm_mxu_attrs.
+const void* wide_instance(int i) {
+#define EXBLAS_WG_PTR(A, B) \
+  reinterpret_cast<const void*>(wgw::wide_kernel<A + 1, B + 1>),
+  static const void* const kernels[kNWide] = {EXBLAS_WG_RUNGS(EXBLAS_WG_PTR)};
+#undef EXBLAS_WG_PTR
+  return i >= 0 && i < kNWide ? kernels[i] : nullptr;
 }
 
 }  // namespace
@@ -659,8 +1084,10 @@ int mxu_gemm88_cuda(const void* ad, const void* bd, long long m_pad,
       wg88::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap map_a, map_b;
-  int err = plane_map(&map_a, ad, m_pad, k_pad, wg88::kBM);
-  if (err == 0) err = plane_map(&map_b, bd, n_pad, k_pad, wg88::kWN);
+  int err = plane_map(&map_a, ad, m_pad, k_pad, wg88::kBM, wg88::kS);
+  if (err == 0) {
+    err = plane_map(&map_b, bd, n_pad, k_pad, wg88::kWN, wg88::kS);
+  }
   if (err != 0) return err;
   const long long m_tiles = m_pad / wg88::kBM;
   const long long n_tiles = n_pad / wg88::kBN;
@@ -674,6 +1101,38 @@ int mxu_gemm88_cuda(const void* ad, const void* bd, long long m_pad,
       static_cast<unsigned long long*>(words), first, last,
       static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Rungs (8, 12) to (16, 16) (gemm_mxu.py WG_RUNGS): k elements [k0, k0 +
+// k_len) of every element of the (m, n) result, as mxu_gemm88_cuda at
+// (8, 8).  ad: A's digit planes (sa + 1, m_pad, k_pad) int8, bd: B^T's
+// (sb + 1, n_pad, k_pad); m_pad a multiple of 64, n_pad of 16, k0 and k_len
+// of 32, k_len at most the rung's exact chunk (gemm_mxu.py exact_chunk).
+// words: (Rung::kWords, m, n) int64 (gemm_mxu.py wg_words), read unless
+// first, written unless last.
+int mxu_gemm_wide_cuda(const void* ad, const void* bd, int sa, int sb,
+                       long long m_pad, long long n_pad, long long k_pad,
+                       long long k0, long long k_len, const void* ea,
+                       const void* fb, const void* c, long long beta,
+                       int beta_mode, long long m, long long n, void* words,
+                       int first, int last, void* out, void* stream) {
+  const long long pairs = (sa < sb ? sa : sb) + 1;
+  if (m_pad % wgw::kBM || n_pad % wgw::kBN || k0 % wgw::kBK ||
+      k_len % wgw::kBK || k_len <= 0 || k0 + k_len > k_pad ||
+      k_len * pairs * 16384 > 0x7FFFFFFFLL || k_pad > 0x7FFFFFFFLL ||
+      m_pad > 0x7FFFFFFFLL || n_pad > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define EXBLAS_WIDE(A, B)                                                    \
+  if (sa == A && sb == B) {                                                  \
+    return wide_launch<A + 1, B + 1>(ad, bd, m_pad, n_pad, k_pad, k0, k_len, \
+                                     ea, fb, c, beta, beta_mode, m, n, words, \
+                                     first, last, out, s);                   \
+  }
+  EXBLAS_WG_RUNGS(EXBLAS_WIDE)
+#undef EXBLAS_WIDE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Digit planes of x (rows, k) int64 bits, row-major, anchored by the int64
@@ -724,13 +1183,17 @@ int mxu_round_cuda(const void* cls, int n_cls, long long rows,
 // out[0..3] = registers a thread, local (spilled) bytes, static and
 // dynamic shared bytes (as set before its first launch) of kernel
 // `which`: 0 the rung (8, 8) class kernel, 1 the digit kernel at
-// n_slices = 8, 2 the digit kernel at other n_slices.
+// n_slices = 8, 2 the digit kernel at other n_slices, 3 + i the class
+// kernel of the i-th rung of WG_RUNGS.
 int gemm_mxu_attrs(int which, void* out) {
   cudaFuncAttributes a;
   cudaError_t err = cudaErrorInvalidValue;
   if (which == 0) err = cudaFuncGetAttributes(&a, wg88::gemm88_kernel);
   if (which == 1) err = cudaFuncGetAttributes(&a, mxu_digits_kernel<true>);
   if (which == 2) err = cudaFuncGetAttributes(&a, mxu_digits_kernel<false>);
+  if (which >= 3 && which < 3 + kNWide) {
+    err = cudaFuncGetAttributes(&a, wide_instance(which - 3));
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   int* o = static_cast<int*>(out);
   o[0] = a.numRegs;

@@ -18,15 +18,16 @@ and its XLA-level preparation):
 
 :func:`gemm_bits_mxu_cuda` is the port of ``gemm_bits_mxu``: on CUDA
 bit tensors it launches the digit kernel (the preparation the JAX package
-left to XLA) and, at rung (8, 8), the wgmma class kernel that rounds in its
-epilogue, one launch a chunk of :data:`K_CHUNK` k elements; at the other
-rungs the class kernel and the rounding kernel.  No fallback; it counts one
-launch per call.  :func:`gemm_bits_mxu_torch` is its plain version:
-:func:`mxu_operands`, then the class sums chunk by chunk by float64 matrix
-products of the digit planes, which are exact (every partial sum is an
-integer below 2^53: ``|M_c| < 2^14 * 49 * k``), then the same combination
-and rounding.  :func:`excess_digits` is the plain model of the kernels'
-recode (``csrc/mxu.cuh``), held against :func:`make_digits`.
+left to XLA) and, at rung (8, 8) and at the rungs of :data:`WG_RUNGS`, a
+wgmma class kernel that rounds in its epilogue, one launch a chunk of
+:func:`wg_chunk` k elements; at the wider rungs the mma.sync class kernel
+and the rounding kernel.  No fallback; it counts one launch per call.
+:func:`gemm_bits_mxu_torch` is its plain version: :func:`mxu_operands`,
+then the class sums chunk by chunk by float64 matrix products of the digit
+planes, which are exact (every partial sum is an integer below 2^53:
+``|M_c| < 2^14 * 49 * k``), then the same combination and rounding.
+:func:`excess_digits` is the plain model of the kernels' recode
+(``csrc/mxu.cuh``), held against :func:`make_digits`.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ from ._build import ptr, stream_of
 from .gemm_kernel import _beta_code, check_cuda_bits
 
 __all__ = ["analyze_gemm_operands", "make_digits", "excess_digits",
-           "exact_chunk", "mxu_l_rel", "MXU_BETA_HEAD", "MxuOperands",
+           "exact_chunk", "wg_chunk", "wg_chunks", "wg_words", "MXU_LADDER",
+           "WG_RUNGS", "mxu_l_rel", "MXU_BETA_HEAD", "MxuOperands",
            "mxu_operands", "mxu_operands_cuda", "gemm_bits_mxu_cuda",
            "gemm_bits_mxu_torch"]
 
@@ -69,6 +71,45 @@ def exact_chunk(sa: int, sb: int) -> int:
 # sums stay in int32 registers over one chunk.  No bit depends on it; the
 # tests shrink it to show that.
 K_CHUNK = exact_chunk(8, 8)
+
+# (sa, sb) slice-count rungs of the dispatcher (ops/exgemm.py), ordered by
+# cost (sa+1)*(sb+1).
+MXU_LADDER = ((8, 8), (8, 12), (12, 8), (8, 16), (16, 8),
+              (12, 12), (12, 16), (16, 12), (16, 16),
+              (16, 20), (20, 16), (20, 20), (24, 24), (28, 28), (32, 32),
+              (40, 40), (48, 48))
+
+# The rungs besides (8, 8) whose class sums a wgmma kernel holds in
+# registers and rounds in its epilogue (csrc/gemm_mxu.cu wgw::wide_kernel,
+# one instance a rung of EXBLAS_WG_RUNGS, in this order); the wider rungs
+# run the mma.sync class kernel, an int64 class-sum buffer and the rounding
+# kernel.
+WG_RUNGS = tuple(r for r in MXU_LADDER if r != (8, 8) and max(r) <= 16)
+
+
+def wg_chunk(sa: int, sb: int) -> int:
+    """k elements a launch of the wgmma kernel of rung (sa, sb) covers:
+    the rung's exact chunk, or :data:`K_CHUNK` if that is smaller."""
+    return min(K_CHUNK, exact_chunk(sa, sb))
+
+
+def wg_chunks(sa: int, sb: int, k_pad: int) -> list[tuple[int, int]]:
+    """(k0, k_len) of each launch of the wgmma kernel of rung (sa, sb)
+    over k_pad (a multiple of TILE) k elements: chunks of
+    :func:`wg_chunk`, the last one shorter."""
+    chunk = wg_chunk(sa, sb)
+    if chunk % TILE or chunk <= 0:
+        raise ValueError(f"gemm_bits_mxu_cuda: chunk {chunk} is not a "
+                         f"positive multiple of {TILE}")
+    return [(k0, min(chunk, k_pad - k0)) for k0 in range(0, k_pad, chunk)]
+
+
+def wg_words(sa: int, sb: int) -> int:
+    """64-bit words that hold an element's exact value at rung (sa, sb) in
+    units of 2^(e_base - 8(sa+sb)): below 2^(8(sa+sb) + 38), since k is
+    below 2^22 and beta*c reaches at most :data:`MXU_BETA_HEAD` bits above
+    the anchor, plus a sign bit (the kernels' ``kWords``)."""
+    return (8 * (sa + sb) + 39 + 63) // 64
 
 # Bits of headroom above the anchor that beta*C products may occupy (the
 # three extra limbs of mxu_l_rel minus two limbs' carry slack).
@@ -314,31 +355,37 @@ def _rel_layout(ops: MxuOperands, beta_mode: str):
     return rel0, ops.sa + ops.sb + 1, nl
 
 
+def _wg_launches(launch, rung_args: tuple, ops: MxuOperands, c_bits,
+                 mode: int, beta: int, out) -> int:
+    """The wgmma class kernels' chunk loop: the C entry ``launch`` (its
+    rung's arguments ``rung_args`` after the digit planes) once a chunk of
+    wg_chunks(sa, sb); more than one chunk carries each element's
+    wg_words(sa, sb) exact words in device memory.  Returns the launches."""
+    _, m_pad, k_pad = ops.ad.shape
+    n_pad = ops.bd.shape[1]
+    m, n = ops.m, ops.n
+    chunks = wg_chunks(ops.sa, ops.sb, k_pad)
+    dev = out.device
+    words = (torch.empty((wg_words(ops.sa, ops.sb), m, n), dtype=torch.int64,
+                         device=dev) if len(chunks) > 1 else None)
+    stream = stream_of(dev)
+    for k0, k_len in chunks:
+        err = launch(
+            ptr(ops.ad), ptr(ops.bd), *rung_args, m_pad, n_pad, k_pad, k0,
+            k_len, ptr(ops.ea), ptr(ops.fb), ptr(c_bits) if mode else None,
+            beta, mode, m, n, ptr(words) if words is not None else None,
+            int(k0 == 0), int(k0 + k_len == k_pad), ptr(out), stream)
+        _build.check(err, launch.__name__)
+    return len(chunks)
+
+
 @profiling.spanned("exblas.launch.mxu_gemm88_cuda")
 def _gemm88_cuda(ops: MxuOperands, c_bits, mode: int, beta: int,
                  out) -> None:
     """Rung (8, 8): the wgmma class kernel rounds in its epilogue, one
-    launch a chunk of K_CHUNK k elements; more than one chunk carries each
-    element's three exact words in device memory."""
-    if K_CHUNK % TILE or not 0 < K_CHUNK <= exact_chunk(8, 8):
-        raise ValueError(f"gemm_bits_mxu_cuda: K_CHUNK {K_CHUNK} is not a "
-                         f"multiple of {TILE} in (0, {exact_chunk(8, 8)}]")
-    _, m_pad, k_pad = ops.ad.shape
-    n_pad = ops.bd.shape[1]
-    m, n = ops.m, ops.n
-    dev = out.device
-    words = (torch.empty((3, m, n), dtype=torch.int64, device=dev)
-             if k_pad > K_CHUNK else None)
-    lib = _build.library()
-    stream = stream_of(dev)
-    for k0 in range(0, k_pad, K_CHUNK):
-        k_len = min(K_CHUNK, k_pad - k0)
-        err = lib.mxu_gemm88_cuda(
-            ptr(ops.ad), ptr(ops.bd), m_pad, n_pad, k_pad, k0, k_len,
-            ptr(ops.ea), ptr(ops.fb), ptr(c_bits) if mode else None, beta,
-            mode, m, n, ptr(words) if words is not None else None,
-            int(k0 == 0), int(k0 + k_len == k_pad), ptr(out), stream)
-        _build.check(err, "mxu_gemm88_cuda")
+    launch a chunk of K_CHUNK k elements (:func:`_wg_launches`)."""
+    _wg_launches(_build.library().mxu_gemm88_cuda, (), ops, c_bits, mode,
+                 beta, out)
 
 
 @profiling.spanned("exblas.launch.mxu_classes_cuda")
@@ -367,10 +414,21 @@ def _round_turn(ops: MxuOperands, r0: int, rr: int, cls, c_bits, mode: int,
     gemm_bits_mxu_cuda.round_launches += 1
 
 
+@profiling.spanned("exblas.launch.mxu_gemm_wide_cuda")
+def _gemm_wide_cuda(ops: MxuOperands, c_bits, mode: int, beta: int,
+                    out) -> None:
+    """The rungs of WG_RUNGS: the wgmma class kernel rounds in its
+    epilogue, one launch a chunk of wg_chunk(sa, sb) k elements
+    (:func:`_wg_launches`), counted in ``wg_launches``."""
+    gemm_bits_mxu_cuda.wg_launches += _wg_launches(
+        _build.library().mxu_gemm_wide_cuda, (ops.sa, ops.sb), ops, c_bits,
+        mode, beta, out)
+
+
 def _gemm_classes_cuda(ops: MxuOperands, c_bits, mode: int, beta: int,
                        beta_mode: str, out) -> None:
-    """The other rungs: int64 class sums in device memory, taken in turns
-    of rows below CLS_BYTES, then the rounding kernel."""
+    """The rungs wider than (16, 16): int64 class sums in device memory,
+    taken in turns of rows below CLS_BYTES, then the rounding kernel."""
     rel0, n_cls, nl = _rel_layout(ops, beta_mode)
     if nl > MAX_REL_LIMBS:
         raise ValueError(f"gemm_bits_mxu_cuda: {nl} accumulator limbs "
@@ -392,12 +450,15 @@ def gemm_bits_mxu_cuda(z_bits, b_bits, c_bits, beta_bits: int,
                        fb=None) -> torch.Tensor:
     """Exact ExGEMM of covered CUDA bit tensors z (m, k), b (k, n), c (m, n)
     at rung (sa, sb) -> (m, n) int64 bits: the digit kernel, then at rung
-    (8, 8) the class kernel that rounds in its epilogue, at the others the
-    class kernel and the rounding kernel.  No specials: the dispatcher
-    overrides those elements.  ``ea``/``fb``: the dispatcher's anchors, if
-    any.  Besides ``launches``, the wrapper counts the int64 class-sum
-    buffers it allocates (``class_buffers``) and the rounding kernel's
-    launches (``round_launches``): rung (8, 8) needs neither."""
+    (8, 8) and the rungs of WG_RUNGS a wgmma class kernel that rounds in
+    its epilogue, at the wider rungs the mma.sync class kernel and the
+    rounding kernel.  No specials: the dispatcher overrides those elements.
+    ``ea``/``fb``: the dispatcher's anchors, if any.  Besides ``launches``,
+    the wrapper counts the launches of the WG_RUNGS kernel
+    (``wg_launches``), the int64 class-sum buffers it allocates
+    (``class_buffers``) and the rounding kernel's launches
+    (``round_launches``): the rungs up to (16, 16) need neither of the
+    last two."""
     m, k = z_bits.shape
     n = b_bits.shape[1]
     check_cuda_bits(z_bits, "gemm_bits_mxu_cuda", (m, k))
@@ -414,6 +475,8 @@ def gemm_bits_mxu_cuda(z_bits, b_bits, c_bits, beta_bits: int,
             "exblas.gemm.classes"):
         if (sa, sb) == (8, 8):
             _gemm88_cuda(ops, c_bits, mode, beta, out)
+        elif (sa, sb) in WG_RUNGS:
+            _gemm_wide_cuda(ops, c_bits, mode, beta, out)
         else:
             _gemm_classes_cuda(ops, c_bits, mode, beta, beta_mode, out)
     gemm_bits_mxu_cuda.launches += 1
@@ -421,6 +484,7 @@ def gemm_bits_mxu_cuda(z_bits, b_bits, c_bits, beta_bits: int,
 
 
 gemm_bits_mxu_cuda.launches = 0
+gemm_bits_mxu_cuda.wg_launches = 0
 gemm_bits_mxu_cuda.class_buffers = 0
 gemm_bits_mxu_cuda.round_launches = 0
 

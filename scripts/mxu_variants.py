@@ -7,15 +7,18 @@ and the CUDA toolkit:
     python3 scripts/mxu_variants.py
 
 It compiles a copy of ``csrc/gemm_mxu.cu`` for each class-window
-partition of the rung (8, 8) GEMM kernel (its ``kWin``) and of
+partition of the rung (8, 8) GEMM kernel (its ``kWin``), for each window
+width of the rungs (8, 12) to (16, 16) (``wgw::kWidth``), and of
 ``csrc/gemv_mxu.cu`` for each warp and stage count of the rung (2, 2) GEMV
 kernel (its ``kWarps``, ``kStages``), each into a library of its own under
 ``build/variants/``, and prints ptxas' spill line for each.  Every variant
 must give the bits of the default build: B6 on a few shapes against
-``gemm_bits_mxu_torch`` and at n = 4096 on the benchmark data against the
-default kernel, B9's class sums at 8192^2 against the default kernel's,
-with the widening every 64 k too.  Then it times the variants with CUDA
-events in turns (the list, then the list reversed) on the same card.
+``gemm_bits_mxu_torch`` and at n = 4096 against the default kernel (the
+benchmark data at (8, 8), exponents in [0, 50) at (16, 16)), B9's class
+sums at 8192^2 against the default kernel's, with the widening every 64 k
+too.  Then it times the variants with CUDA events in turns (the list, then
+the list reversed) on the same card.  ``--only gemm,wide,gemv`` picks the
+sets to run.
 """
 
 from __future__ import annotations
@@ -42,14 +45,17 @@ OUT = _build.BUILD_DIR.parent / "variants"
 # the class windows' cuts (0, ..., 17)
 GEMM_WINDOWS = ((0, 4, 12, 17), (0, 4, 13, 17), (0, 3, 11, 17),
                 (0, 5, 12, 17), (0, 6, 12, 17), (0, 9, 17))
+# the window widths of the wide rungs' kernel (wgw::kWidth)
+WIDE_WIDTHS = (4, 5, 8)
 # (warps, stages)
 GEMV_SHAPES = ((12, 3), (8, 4), (10, 4), (12, 4))
 ONE = int(np.float64(1.0).view(np.int64))
 
 
-def build(src: str, edits: dict):
-    """(the entry point, ptxas' spill line) of a copy of ``src`` with the
-    lines ``edits`` maps replaced, built into a library of its own."""
+def build(src: str, edits: dict, key: str = "", entry: str = ""):
+    """(the entry point, ptxas' spill lines) of a copy of ``src`` with the
+    lines ``edits`` maps replaced, built into a library of its own; the
+    spill lines of the kernels whose names hold ``key``."""
     text = (_build.CSRC / f"{src}.cu").read_text()
     for old, new in edits.items():
         if old not in text:
@@ -67,10 +73,11 @@ def build(src: str, edits: dict):
     if proc.returncode != 0:
         raise RuntimeError(f"{copy.name}: {proc.stderr[-3000:]}")
     lines = proc.stderr.splitlines()
-    key = "gemm88" if src == "gemm_mxu" else "3v22"
+    key = key or ("gemm88" if src == "gemm_mxu" else "3v22")
     spills = [lines[i + 2].strip() for i, line in enumerate(lines)
               if "Compiling entry" in line and key in line]
-    entry = "mxu_gemm88_cuda" if src == "gemm_mxu" else "gemv_mxu_classes_cuda"
+    entry = entry or ("mxu_gemm88_cuda" if src == "gemm_mxu"
+                      else "gemv_mxu_classes_cuda")
     fn = getattr(ctypes.CDLL(str(lib)), entry)
     fn.argtypes = _build.SIGNATURES[entry]
     fn.restype = ctypes.c_int
@@ -92,26 +99,17 @@ def cuda_ms(fn, reps: int) -> float:
 
 def gemm88(fn, ops, c_bits, mode: int, beta: int) -> torch.Tensor:
     """gemm_mxu.py's rung (8, 8) launches through the entry ``fn``."""
-    _, m_pad, k_pad = ops.ad.shape
-    m, n, p = ops.m, ops.n, _build.ptr
-    out = torch.empty((m, n), dtype=torch.int64, device="cuda")
-    words = (torch.empty((3, m, n), dtype=torch.int64, device="cuda")
-             if k_pad > gm.K_CHUNK else None)
-    for k0 in range(0, k_pad, gm.K_CHUNK):
-        k_len = min(gm.K_CHUNK, k_pad - k0)
-        _build.check(fn(p(ops.ad), p(ops.bd), m_pad, ops.bd.shape[1], k_pad,
-                        k0, k_len, p(ops.ea), p(ops.fb),
-                        p(c_bits) if mode else None, beta, mode, m, n,
-                        p(words) if words is not None else None,
-                        int(k0 == 0), int(k0 + k_len == k_pad), p(out),
-                        _build.stream_of(out.device)), "mxu_gemm88_cuda")
+    out = torch.empty((ops.m, ops.n), dtype=torch.int64, device="cuda")
+    gm._wg_launches(fn, (), ops, c_bits, mode, beta, out)
     return out
 
 
-def mat(m, n, seed):
+def mat(m, n, seed, binades=10, signed=True):
+    """Bits of doubles with exponents in [0, binades)."""
     rs = np.random.RandomState(seed)
-    x = (1.0 + rs.rand(m, n)) * np.exp2(rs.randint(0, 10, size=(m, n)))
-    x *= np.where(rs.rand(m, n) < 0.5, -1.0, 1.0)
+    x = (1.0 + rs.rand(m, n)) * np.exp2(rs.randint(0, binades, size=(m, n)))
+    if signed:
+        x *= np.where(rs.rand(m, n) < 0.5, -1.0, 1.0)
     return torch.from_numpy(x).cuda().view(torch.int64)
 
 
@@ -154,6 +152,57 @@ def gemm_variants() -> None:
               f"{'==' if same else '!='} default")
         if not same:
             raise SystemExit(f"B6 windows {name} differ at n={n}")
+
+
+def wide(fn, ops, c_bits, mode: int, beta: int) -> torch.Tensor:
+    """gemm_mxu.py's launches of a WG_RUNGS rung through the entry ``fn``."""
+    out = torch.empty((ops.m, ops.n), dtype=torch.int64, device="cuda")
+    gm._wg_launches(fn, (ops.sa, ops.sb), ops, c_bits, mode, beta, out)
+    return out
+
+
+def wide_variants() -> None:
+    def width(w):
+        return (f"kWidth {w}", {"constexpr int kWidth = 4; ":
+                                f"constexpr int kWidth = {w}; "})
+
+    with ThreadPoolExecutor(len(WIDE_WIDTHS)) as pool:
+        built = dict(pool.map(
+            lambda w: (width(w)[0], build("gemm_mxu", width(w)[1],
+                                          "wide_kernel",
+                                          "mxu_gemm_wide_cuda")),
+            WIDE_WIDTHS))
+    for name, (_, spills) in built.items():
+        print(f"B6 wide rungs, {name}: ptxas {spills}")
+    for ci, (m, k, n) in enumerate(((1, 1, 1), (130, 300, 70),
+                                    (257, 4096 + 33, 129))):
+        for sa, sb in gm.WG_RUNGS:
+            z = mat(m, k, ci, 8 * sa - 63)
+            b = mat(k, n, ci + 9, 8 * sb - 63)
+            c = mat(m, n, ci + 99)
+            want = gm.gemm_bits_mxu_torch(z, b, c, ONE, "one", sa, sb)
+            ops = gm.mxu_operands_cuda(z, b, sa, sb)
+            for name, (fn, _) in built.items():
+                if not torch.equal(wide(fn, ops, c, 1, ONE), want):
+                    raise SystemExit(f"B6 {name} differs at ({sa}, {sb}) "
+                                     f"{m}x{k}x{n}")
+    n = 4096
+    a, b, c = (mat(n, n, s, 50, signed=False) for s in (1, 2, 3))
+    plan = plan_gemm(a, b, c, ONE, "one")
+    if plan.rung != (16, 16):
+        raise SystemExit(f"exponents in [0, 50) took rung {plan.rung}")
+    ref = gm.gemm_bits_mxu_cuda(a, b, c, ONE, "one", 16, 16, ea=plan.ea0,
+                                fb=plan.fb0)
+    ops = gm.mxu_operands_cuda(a, b, 16, 16, ea=plan.ea0, fb=plan.fb0)
+    names = list(built)
+    for name in names + names[::-1]:
+        fn = built[name][0]
+        same = torch.equal(wide(fn, ops, c, 1, ONE), ref)
+        t = cuda_ms(lambda: wide(fn, ops, c, 1, ONE), 3)
+        print(f"B6 class kernel (16, 16) n={n}, {name}: {t:.3f} ms, "
+              f"{'==' if same else '!='} default")
+        if not same:
+            raise SystemExit(f"B6 {name} differs at n={n}")
 
 
 def gemv_variants() -> None:
@@ -206,9 +255,13 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    sets = {"gemm": gemm_variants, "wide": wide_variants,
+            "gemv": gemv_variants}
+    only = (sys.argv[sys.argv.index("--only") + 1].split(",")
+            if "--only" in sys.argv else list(sets))
     _build.library()
-    gemm_variants()
-    gemv_variants()
+    for name in only:
+        sets[name]()
     print("mxu_variants: passed")
 
 

@@ -9,7 +9,10 @@ The JAX slice path (``impl="mxu"``) compiles every rung and is never
 called here; the CUDA kernels are held against these plain versions on the
 card by ``chip_smoke.py``."""
 
+import contextlib
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -308,6 +311,128 @@ def test_mxu_sizing_matches_jax():
                 # the kernel's accumulator holds every rung up to the k cap
                 assert (tmxu.mxu_l_rel(sa, sb, mode, k_pad) + 3
                         <= tmxu.MAX_REL_LIMBS)
+
+
+# --- the rungs of the wgmma class kernel (csrc/gemm_mxu.cu wgw) -----------
+
+def test_wg_rungs_are_the_ladder_up_to_16():
+    """Rungs (8, 12) to (16, 16) take the wgmma kernel, the wider ones keep
+    the mma.sync one; the dispatcher climbs the kernels' ladder, and the C
+    source's one table of instances (EXBLAS_WG_RUNGS) lists WG_RUNGS in
+    order (gemm_mxu_attrs numbers the instances by it)."""
+    assert E._MXU_LADDER is tmxu.MXU_LADDER
+    assert tmxu.WG_RUNGS == ((8, 12), (12, 8), (8, 16), (16, 8), (12, 12),
+                             (12, 16), (16, 12), (16, 16))
+    src = (Path(tmxu.__file__).parent / "csrc" / "gemm_mxu.cu").read_text()
+    table = re.search(r"#define EXBLAS_WG_RUNGS\(X\)((?:.*\\\n)*.*)",
+                      src).group(1)
+    rungs = re.findall(r"X\(\s*(\d+)\s*,\s*(\d+)\s*\)", table)
+    assert tuple((int(a), int(b)) for a, b in rungs) == tmxu.WG_RUNGS
+
+
+@pytest.mark.parametrize("rung", [(8, 8), (8, 12), (12, 16), (16, 16),
+                                  (16, 20), (48, 48)])
+def test_wrapper_routes_each_rung(rung, monkeypatch):
+    """gemm_bits_mxu_cuda's class path by rung, its launches stubbed: wg88
+    at (8, 8), the wgmma kernel at WG_RUNGS, mma.sync above (16, 16)."""
+    taken = []
+    for name in ("_gemm88_cuda", "_gemm_wide_cuda", "_gemm_classes_cuda"):
+        monkeypatch.setattr(tmxu, name,
+                            lambda *a, name=name: taken.append(name))
+    monkeypatch.setattr(tmxu, "check_cuda_bits", lambda *a: None)
+    monkeypatch.setattr(tmxu, "mxu_operands_cuda", tmxu.mxu_operands)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    z, b = _bits(mat(3, 4, 0, 9, 1)), _bits(mat(4, 2, 0, 9, 2))
+    tmxu.gemm_bits_mxu_cuda(z, b, None, 0, "zero", *rung)
+    want = ("_gemm88_cuda" if rung == (8, 8) else "_gemm_wide_cuda"
+            if max(rung) <= 16 else "_gemm_classes_cuda")
+    assert taken == [want]
+
+
+@pytest.mark.parametrize("rung", tmxu.WG_RUNGS)
+def test_wg_chunk_is_the_exact_chunk(rung, monkeypatch):
+    """A launch covers the most k (a power of two) over which the int32
+    class sums are exact: min(sa, sb) + 1 digit pairs of |d_s d_t| <= 2^14
+    a k element; K_CHUNK shrinks it."""
+    sa, sb = rung
+    chunk = tmxu.wg_chunk(sa, sb)
+    assert chunk == (4096 if rung == (16, 16) else 8192)
+    assert chunk * (min(sa, sb) + 1) << 14 < 1 << 31
+    assert 2 * chunk * (min(sa, sb) + 1) << 14 >= 1 << 31
+    monkeypatch.setattr(tmxu, "K_CHUNK", 64)
+    assert tmxu.wg_chunk(sa, sb) == 64
+
+
+def test_wg_chunks(monkeypatch):
+    assert tmxu.wg_chunks(16, 16, 4096) == [(0, 4096)]
+    assert tmxu.wg_chunks(16, 16, 4096 + 32) == [(0, 4096), (4096, 32)]
+    assert tmxu.wg_chunks(8, 12, 2 * 8192 + 64) == [(0, 8192), (8192, 8192),
+                                                     (16384, 64)]
+    monkeypatch.setattr(tmxu, "K_CHUNK", 64)
+    assert tmxu.wg_chunks(12, 16, 160) == [(0, 64), (64, 64), (128, 32)]
+    monkeypatch.setattr(tmxu, "K_CHUNK", 48)
+    with pytest.raises(ValueError):
+        tmxu.wg_chunks(16, 16, 96)
+
+
+@pytest.mark.parametrize("rung", [(8, 8), *tmxu.WG_RUNGS])
+def test_wg_words_hold_the_exact_value(rung):
+    """An element's words (units of 2^(e_base - 8(sa+sb))) hold its largest
+    exact value, MXU_K_CAP products below 2^e_base each and a beta*c up to
+    MXU_BETA_HEAD bits above the anchor, with a sign bit; class 0's sum
+    (relative bit 8(sa+sb), below 2^31) lands in them.  At (8, 8) they are
+    wg88's three."""
+    sa, sb = rung
+    rel0, nw = 8 * (sa + sb), tmxu.wg_words(sa, sb)
+    top = E.MXU_K_CAP * (1 << rel0) + (1 << (rel0 + tmxu.MXU_BETA_HEAD + 1))
+    assert top < 1 << (64 * nw - 1)
+    assert rel0 + 32 <= 64 * nw
+    assert nw == {(8, 8): 3, (12, 16): 5, (16, 12): 5, (16, 16): 5}.get(
+        rung, 4)
+
+
+@pytest.mark.parametrize("chunk", [64, 8192])
+def test_wide_wrapper_launches_and_words(chunk, monkeypatch):
+    """_gemm_wide_cuda's launches at rung (16, 16), the C entry stubbed:
+    one a chunk, first and last flagged, the words buffer (wg_words, m, n)
+    int64 only where k spans more than one chunk, shared by the launches;
+    wg_launches counts them."""
+    calls, shapes = [], []
+
+    class Lib:
+        def mxu_gemm_wide_cuda(self, *args):
+            calls.append(args)
+            return 0
+
+    empty = torch.empty
+
+    def recording_empty(shape, **kw):
+        shapes.append((tuple(shape), kw.get("dtype")))
+        return empty(shape, **kw)
+
+    monkeypatch.setattr(tmxu, "K_CHUNK", chunk)
+    monkeypatch.setattr(tmxu._build, "library", Lib)
+    monkeypatch.setattr(tmxu, "stream_of", lambda d: None)
+    m, k, n = 3, 100, 5
+    ops = tmxu.mxu_operands(_bits(mat(m, k, 0, 9, 3)),
+                            _bits(mat(k, n, 0, 9, 4)), 16, 16)
+    out = torch.empty((m, n), dtype=torch.int64)
+    before = tmxu.gemm_bits_mxu_cuda.wg_launches
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    tmxu._gemm_wide_cuda(ops, None, 0, 0, out)
+    k_pad = ops.ad.shape[2]
+    want = tmxu.wg_chunks(16, 16, k_pad)
+    assert [(a[7], a[8]) for a in calls] == want
+    assert [(a[17], a[18]) for a in calls] == [
+        (int(i == 0), int(i == len(want) - 1)) for i in range(len(want))]
+    assert all(a[2:4] == (16, 16) for a in calls)
+    assert tmxu.gemm_bits_mxu_cuda.wg_launches - before == len(want)
+    if len(want) > 1:
+        assert shapes == [((5, m, n), torch.int64)]
+        assert len({a[16].value for a in calls}) == 1
+    else:
+        assert shapes == [] and calls[0][16] is None
 
 
 # --- the dispatcher ---------------------------------------------------------
