@@ -23,6 +23,7 @@ they import only ``torch_dist`` and the port.
 
 import functools
 import threading
+import time
 from functools import partial
 
 import numpy as np
@@ -281,6 +282,12 @@ def plan(d) -> dict:
     return calls
 
 
+# Seconds for every world: a hung world fails first by its own name, after
+# torch_dist.WORLD_TIMEOUT in each of the two waves of ranks; this limit
+# only catches a hang outside them.  The worlds take about 30 s in a run.
+WORLDS_LIMIT = 2 * torch_dist.WORLD_TIMEOUT + 30
+
+
 def _compute(directory):
     return torch_dist.spawn_worlds(
         torch_dist.run_calls,
@@ -303,10 +310,12 @@ def worlds(tmp_path_factory):
 
     thread = threading.Thread(target=target, daemon=True)
     thread.start()
+    deadline = time.monotonic() + WORLDS_LIMIT
 
     def get():
-        thread.join(timeout=900)
-        assert not thread.is_alive(), "the worlds did not finish in 900 s"
+        thread.join(timeout=max(0.0, deadline - time.monotonic()))
+        assert not thread.is_alive(), (
+            f"the worlds did not finish in {WORLDS_LIMIT:g} s")
         if "error" in box:
             raise box["error"]
         return box["value"]

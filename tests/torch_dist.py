@@ -236,8 +236,11 @@ def run_calls(rank: int, world: int, device_type: str, calls) -> dict:
 def shared_result(tmp_path_factory, name: str, compute):
     """``compute(directory)`` once per test run, its result shared by every
     pytest-xdist worker of the run through a pickle under a lock (the
-    first worker computes; the others wait and read).  Without xdist it
-    is computed in the process."""
+    first worker computes; the others wait and read).  Under the suite's
+    own ``--dist load`` scheduler (the root ``conftest.py``) a module that
+    uses it is one unit, so one worker computes and reads; the lock serves
+    runs without that scheduler.  Without xdist it is computed in the
+    process."""
     run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
     if run is None:
         return compute(tmp_path_factory.mktemp(name))
